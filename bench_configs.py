@@ -26,12 +26,9 @@ import dirt_tpu  # noqa: E402
 
 
 def _report(name, size, fwd_fn, fwd_args, loss_fn, loss_args):
-    # The rep-count differencing needs (r2 - r1) * t >= ~30-100 ms of
-    # signal to rise above transport-RTT variance (~ms even after the
-    # fixed part cancels). Small/fast configs therefore need MANY reps:
-    # r2=6 at 512^2 (a ~1-2 ms workload) produced garbage (config4 fwd
-    # "5.1 ms" > its own grad step). Rolled fori_loop reps are free at
-    # compile time.
+    # The rep-count differencing needs (r2 - r1) * t well above the host
+    # jitter, so small/fast configs need many reps. Rolled fori_loop reps
+    # are free at compile time.
     r2 = {64: 601, 256: 301, 512: 101}.get(size, 26)
     t_f = device_time(fwd_fn, fwd_args, r1=2, r2=r2, samples=3)
     t_b = device_time(
@@ -151,8 +148,7 @@ def config4():
             world, normals, jnp.ones((len(world), 3), jnp.float32),
             jnp.zeros(3), light / jnp.linalg.norm(light), jnp.ones(3), 24.0,
         )
-        ones = jnp.ones(world.shape[:-1] + (1,), world.dtype)
-        clip = jnp.concatenate([world, ones], -1) @ proj
+        clip = matrices.transform_homogeneous(world, proj)
         return dirt_tpu.rasterise(bg, clip, shaded, faces, config=rcfg)
 
     light = jnp.array([0.3, 0.8, 0.52])
@@ -181,8 +177,7 @@ def config5():
         )
         world = matrices.transform_homogeneous(verts, mv)[..., :3]
         normals = lighting.vertex_normals(world, faces)
-        ones = jnp.ones(world.shape[:-1] + (1,), world.dtype)
-        clip = jnp.concatenate([world, ones], -1) @ proj
+        clip = matrices.transform_homogeneous(world, proj)
         gb = render_gbuffer(
             clip, faces,
             {"position": world, "normal": normals, "uv": uvs},

@@ -3,7 +3,7 @@
 // The native tier of dirt_tpu's asset IO: parsing multi-hundred-MB OBJ
 // files in Python is 50-100x slower than this single-pass parser. The
 // compute path stays JAX/Pallas (see docs/DESIGN.md); IO is where native
-// code earns its keep on TPU hosts.
+// code earns its keep on large meshes.
 //
 // Semantics:
 //  - v / vt / vn records parsed; f records triangulated as fans.

@@ -51,8 +51,7 @@ def main():
             light_direction=light_dir, light_color=jnp.ones(3),
             shininess=20.0,
         )
-        ones = jnp.ones(world.shape[:-1] + (1,), world.dtype)
-        clip = jnp.concatenate([world, ones], -1) @ projection
+        clip = matrices.transform_homogeneous(world, projection)
         return dirt_tpu.rasterise(
             jnp.zeros((SIZE, SIZE, 3), jnp.float32), clip, shaded, faces
         )
@@ -78,7 +77,7 @@ def main():
         g = grad_fn(p)
         return {k: p[k] - lr[k] * g[k] for k in p}, ()
 
-    # One device-side lax.scan (host loops pay ~100 ms dispatch per step).
+    # One device-side lax.scan instead of a host-driven loop.
     params = jax.jit(lambda p: jax.lax.scan(
         step, p, None, length=STEPS)[0])(params)
     l1 = float(loss_fn(params))

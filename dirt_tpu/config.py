@@ -1,30 +1,26 @@
 """Global configuration for dirt_tpu.
 
-The Pallas kernels compile for TPU via Mosaic; on any other backend (CPU in
-tests / CI) they run under the Pallas interpreter, which is bit-compatible
-with the compiled path for the f32 math used here.
+The Pallas kernels compile for NVIDIA GPUs through Pallas's Triton route;
+on the CPU (tests, CI) they run under the Pallas interpreter. No other
+backend falls back to the interpreter: a kernel that cannot compile for
+the device it runs on is an error.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
-
-# Allow forcing interpreter mode (e.g. for debugging on a real TPU).
-_FORCE_INTERPRET = os.environ.get("DIRT_TPU_FORCE_INTERPRET", "") == "1"
 
 
 def use_interpret() -> bool:
-    """Whether pallas_call should run in interpreter mode."""
-    if _FORCE_INTERPRET:
-        return True
-    return jax.default_backend() != "tpu"
+    """Whether pallas_call should run in interpreter mode (CPU only)."""
+    return jax.default_backend() == "cpu"
 
 
-# Default image-space tile size for the raster kernels. The lane (width)
-# dimension is 128 to match the VPU's 8x128 register shape; the sublane
-# (height) dimension is a multiple of 8.
+# Default image-space tile size for binning. Kernel programs cover
+# BLOCK_H-row strips of a tile's full width (``ops.raster_fwd``), and
+# Triton blocks must be powers of two, so the width is a power of two;
+# 128 columns is also the packed engine's 8 groups of 16-column subtiles.
+# Tile heights are multiples of the 8-row strip.
 TILE_H = 32
 TILE_W = 128
 

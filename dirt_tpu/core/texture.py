@@ -1,25 +1,23 @@
-"""Differentiable texture sampling (pure JAX + a TPU-shaped custom VJP).
+"""Differentiable texture sampling (pure JAX + a scatter-free custom VJP).
 
 The reference does bilinear sampling in user TF code (``samples/textured.py``,
 reconstructed — SURVEY.md section 2.2) with manual gather + lerp; here it is
 a library function. Gradients flow both to the texture and to the UVs.
 
-TPU notes:
+Design notes:
 
-* Forward: XLA's multi-dimensional gather (``texture[v, u]`` with 2D index
-  arrays) lowers to a slow per-element path (~30 ms for 1M samples on v5e).
-  Bilinear sampling instead packs the four corner texels per texel into one
-  row table and does a SINGLE flat row-gather (~2 ms for 1M samples) — row
-  gathers are the one fast gather shape on TPU.
+* Forward: instead of a multi-dimensional gather (``texture[v, u]`` with 2D
+  index arrays), bilinear sampling packs the four corner texels per texel
+  into one row table and does a SINGLE flat row-gather.
 
 * Backward: the autodiff transpose of that gather is an XLA scatter-add
-  (~6.6 ns/update on v5e → ~1.7 ms for a 512² sample grid), the dominant
-  cost of a textured gradient step (reference analogue: the TF
-  ``gather_nd`` transpose in ``samples/textured.py``). The custom VJP here
-  replaces it with sort-class primitives (~1.3 ns/element): sort samples by
-  texel id, inclusive row-cumsum via lower-triangular MXU matmuls, then the
-  per-texel sums are differences of the cumsum at run boundaries found with
-  one ``searchsorted`` — row gathers only, no scatter at any size.
+  (reference analogue: the TF ``gather_nd`` transpose in
+  ``samples/textured.py``). The custom VJP here replaces it with sort-class
+  primitives: sort samples by texel id, inclusive row-cumsum via
+  lower-triangular matmuls, then the per-texel sums are differences of the
+  cumsum at run boundaries found with one ``searchsorted`` — row gathers
+  only, no scatter at any size. Whether this still beats a plain
+  scatter-add (atomics on the GPU) is not measured.
 """
 
 from __future__ import annotations
@@ -42,7 +40,7 @@ def sample_texture(texture, uv, mode: str = "bilinear", wrap: str = "clamp",
         wrap: "clamp" or "repeat", or a ``(wrap_u, wrap_v)`` pair for
             per-axis modes (GL_CLAMP_TO_EDGE / GL_REPEAT per axis).
         channels_first: return [C, ...] instead of [..., C] (cheaper for
-            TPU pipelines that shade channels-first).
+            pipelines that shade channels-first).
         custom_vjp: use the scatter-free hand-written gradient path for
             bilinear mode (default). ``False`` keeps plain autodiff
             (the test oracle for the custom path).
@@ -76,8 +74,7 @@ def sample_texture(texture, uv, mode: str = "bilinear", wrap: str = "clamp",
 
 def _continuous_coords(texture, uv):
     """(u, v) continuous texel coordinates, channels peeled via ONE moveaxis
-    ([..., 0] on a minor-dim-2 array is a strided lane read — a full
-    relayout pass on TPU)."""
+    (instead of strided [..., 0] reads of a minor-dim-2 array)."""
     ht, wt, _ = texture.shape
     uv_cf = jnp.moveaxis(uv, -1, 0)
     u = uv_cf[0] * wt - 0.5
@@ -203,7 +200,7 @@ def _bilinear_ingredients(texture, uv, wrap):
     packed = _pack_corners(texture, wrap)
     rows = packed[ids]                                  # [N, 4C]
     # One transpose to channels-first, then all lerps run on [C, *batch]
-    # slabs (free leading-dim slices, full-lane vector ops).
+    # slabs (free leading-dim slices).
     rows_c = rows.T.reshape((4 * channels,) + batch_shape)
     t00 = rows_c[0 * channels:1 * channels]
     t01 = rows_c[1 * channels:2 * channels]
@@ -232,8 +229,8 @@ def _cumsum_rows(rows):
     """Inclusive cumsum of [N, K] rows along axis 0, N % BLOCK == 0.
 
     A cumsum over a long axis lowers to a slow reduce-window pass in XLA;
-    this instead multiplies each block by a lower-triangular ones matrix on
-    the MXU (f32-highest) and chains exact block totals, so the cost is one
+    this instead multiplies each block by a lower-triangular ones matrix
+    (f32-highest) and chains exact block totals, so the cost is one
     read + one write of the rows.
     """
     n, k = rows.shape
@@ -256,7 +253,7 @@ def segment_rows_sorted(ids, val, num_rows: int):
     """Scatter-free ``out[t] = sum(val[ids == t])`` -> [num_rows, K].
 
     Sort samples by id (payload = row permutation), row-gather, blockwise
-    MXU cumsum, then each id's sum is a difference of the cumsum at its run
+    matmul cumsum, then each id's sum is a difference of the cumsum at its run
     boundaries (one searchsorted over [num_rows+1] query ids). Rows are
     mean-centered first so the prefix differences cancel O(sqrt(N)) random
     walks instead of O(N) totals (f32 accuracy), and the exact

@@ -1,10 +1,11 @@
 """Tile binning: assign faces to image tiles (pure JAX, static shapes).
 
-The reference leans on GL's hardware binning; on TPU this is an explicit
+The reference leans on GL's hardware binning; here it is an explicit
 pass (SURVEY.md sections 2.1 and 7). Overflow beyond the static caps is
 *reported* (boolean flags), never silently dropped without a flag.
 
-Two implementations:
+Three implementations; ``ops.raster_fwd`` turns each into per-block face
+lists for the one scan kernel:
 
 * ``bin_faces`` — dense: a [num_tiles, F] overlap matrix compacted per row
   with top_k. O(T*F) memory/work; the fastest option for small scenes
@@ -12,11 +13,12 @@ Two implementations:
 * ``bin_faces_csr`` — scalable: expand each face into its (tile, face)
   overlap pairs (capped at ``expand_cap`` tiles per face), sort pairs by
   (tile, face), and lay the per-tile runs out in a chunk-padded CSR layout
-  that the streaming kernels consume directly (contiguous CHUNK-row blocks
-  per tile, indexed by scalar-prefetched block starts). O(F * E log) work,
+  (each tile's run starts at a CHUNK-aligned row). O(F * E log) work,
   no T*F matrix — this is the production path for large meshes
   (nvdiffrast-style binned software rasterization; PAPERS.md "Modular
   Primitives", "CuRast").
+* ``bin_faces_packed`` — per 8x16-pixel subtile lists, so a face only
+  costs the subtiles it overlaps (see :class:`PackedBins`).
 """
 
 from __future__ import annotations
@@ -26,21 +28,16 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-CHUNK = 128  # CSR chunk granularity (rows per streamed block)
+CHUNK = 128  # CSR run alignment (rows)
 
-# Packed-subtile geometry (v2 kernel): jobs are (face, 8x16-pixel subtile)
-# pairs; 8 lane groups of 16 pixels tile a 128-wide strip row.
+# Packed-subtile geometry: jobs are (face, 8x16-pixel subtile) pairs; 8
+# column groups of 16 pixels tile a 128-wide strip row.
 SUB_H = 8
 SUB_W = 16
-GROUPS = 8               # 128-lane tile width / SUB_W
-ITERS_PER_CHUNK = CHUNK // GROUPS  # 16 iterations per 128-row CSR chunk
-# Packed-engine chunks are larger: per-grid-step fixed cost measured ~1.2 us
-# on v5e (index-map evaluation + revolving-window bookkeeping for 7 blocks),
-# so 16-iteration chunks would burn ~1 ms at 1024^2. 64 iterations per
-# chunk amortizes that 4x at the cost of more per-tile padding rows.
+GROUPS = 8               # 128-column tile width / SUB_W
+# Each tile's packed run is padded to whole chunks of 64 iterations.
 PACK_CHUNK = 512
-POOL_ALIGN = 4    # pool slots per per-face run block (padding vs
-                  # backward block-gather width tradeoff)
+POOL_ALIGN = 4    # candidate-pool slots per per-face run block
 PACK_ITERS = PACK_CHUNK // GROUPS  # 64 iterations per packed chunk
 
 
@@ -50,21 +47,14 @@ class BinningResult(NamedTuple):
     overflow: jax.Array  # [num_tiles] bool, True where count exceeded cap
 
 
-
-
 def _scan_sum(x, axis=0):
     """Prefix sum via log-depth associative_scan.
 
-    XLA lowers jnp.cumsum/cummax to a reduce-window pass that costs
-    ~0.9 ms at 90k elements on v5e (and scalarizes outright on short
-    arrays); associative_scan emits ~log2(n) shifted vector adds.
+    associative_scan emits ~log2(n) shifted vector adds in place of the
+    reduce-window pass XLA uses for jnp.cumsum/cummax; the two have not
+    been compared on the GPU.
     """
     return jax.lax.associative_scan(jnp.add, x, axis=axis)
-
-
-def _scan_max(x, axis=0):
-    """Prefix max via log-depth associative_scan (see _scan_sum)."""
-    return jax.lax.associative_scan(jnp.maximum, x, axis=axis)
 
 
 def _bbox_cols(bbox):
@@ -120,9 +110,7 @@ def bin_faces(
 
     # Left-compact each row's set bits into face-id lists. top_k on a key
     # that is positive exactly on overlaps and decreasing in face index
-    # yields the first `cap` overlapping ids in ascending order; it is the
-    # fastest row compaction on TPU by a wide margin (vmap'd nonzero:
-    # ~23 ms for 256x10k on v5e; top_k: ~0.5 ms).
+    # yields the first `cap` overlapping ids in ascending order.
     face_ids = jax.lax.broadcasted_iota(jnp.int32, (total, nf), 1)
     key = jnp.where(overlap, nf - face_ids, 0)
     val, idx = jax.lax.top_k(key, cap)
@@ -131,13 +119,12 @@ def bin_faces(
 
 
 class CSRBins(NamedTuple):
-    """Chunk-padded CSR tile bins for the streaming kernels.
+    """Chunk-padded CSR tile bins.
 
     ``entry_face[start_block[t] * CHUNK + i]`` for ``i < counts[t]`` are the
     face ids overlapping tile ``t`` in ascending order; slots between
     ``counts[t]`` and the next tile's start hold the sentinel id F. Every
-    tile's run begins at a CHUNK-aligned row, so kernels can stream blocks
-    ``start_block[t] + j`` for ``j in range(ceil(counts[t] / CHUNK))``.
+    tile's run begins at a CHUNK-aligned row.
     """
 
     entry_face: jax.Array   # [n_pad] int32, sentinel = F
@@ -235,8 +222,8 @@ def bin_faces_csr(
                          jnp.cumsum(padded_counts)[:-1]]) // CHUNK
     ).astype(jnp.int32)
 
-    # Per-pair destination WITHOUT any [npairs]-sized gather from a small
-    # table (slow on TPU): rank within run via cummax of run starts, and
+    # Per-pair destination without an [npairs]-sized gather from a small
+    # table: rank within run via cummax of run starts, and
     # the cumulative pad correction via a cumsum of per-run deltas placed
     # at run starts.
     iota = jnp.arange(npairs, dtype=jnp.int32)
@@ -274,14 +261,13 @@ def bin_faces_csr(
 
 
 class PackedBins(NamedTuple):
-    """Lane-packed subtile bins for the v2 (packed) kernels.
+    """Packed subtile bins (the packed engine).
 
     The image is carved into 8x16-pixel subtiles: strip s of tile t covers
-    rows 8s..8s+8, and each 128-wide strip row holds 8 lane GROUPS of 16
-    columns. A kernel ITERATION processes one strip row: 8 jobs — one
-    (face, subtile) pair per group — evaluated simultaneously on disjoint
-    16-lane segments of an [8, 128] register. This is the round-2 answer
-    to VERDICT weak #1: a face only pays for the subtiles its bbox
+    rows 8s..8s+8, and each 128-wide strip row holds 8 column GROUPS of 16
+    columns. One ITERATION of a strip holds 8 jobs — one (face, subtile)
+    pair per group — that the scan kernel evaluates together over the
+    strip's 8x128 block. A face only pays for the subtiles its bbox
     overlaps (8x16 granularity) instead of whole 64x128 tiles.
 
     ``entries[8 * i + g]`` is the packed job of iteration ``i``, group
@@ -289,43 +275,17 @@ class PackedBins(NamedTuple):
     the sentinel face ``F`` on empty slots. Iterations are laid out
     contiguously per tile — strips in ascending order, ranks within a
     (strip, group) run in ascending face order (preserving the dense
-    path's z-tie rule) — and each tile's run is padded to a CHUNK of 128
-    entries. ``chunk_tile`` maps every 128-entry chunk to its tile so the
-    kernel can run a FLAT grid with zero skipped steps.
+    path's z-tie rule) — and each tile's run is padded to whole
+    PACK_CHUNKs.
     """
 
     entries: jax.Array      # [budget_rows] int32, face * 8 + strip
-    chunk_tile: jax.Array   # [budget_rows // CHUNK] int32
     start_block: jax.Array  # [num_tiles] int32, first chunk of the tile
     n_iters: jax.Array      # [num_tiles] int32, real iterations (un-padded)
     overflow: jax.Array     # [] bool
     iter_off: jax.Array     # [num_tiles * strips] int32: first iteration
                             # (tile-local) of each strip's contiguous run
     strip_iters: jax.Array  # [num_tiles * strips] int32: run length
-    # [pool_cap] int32, or None: budget-row index holding the candidate
-    # at each pool slot — the exact INVERSE of the entries gather, so the
-    # backward can reduce per-entry cotangent rows to faces with row
-    # GATHERS + dense sums instead of an XLA scatter-add (segment_sum
-    # costs ~9 ns/row: 1.08 ms at 1024^2/10k faces — the single largest
-    # backward piece, round-3 profile). Pool slots are 8-aligned
-    # per-face runs (see the flat-pool construction in bin_faces_packed);
-    # missing/filtered/truncated candidates hold the sentinel
-    # ``budget_rows`` (a zero row in the padded cotangent table). None
-    # when the pool would out-size the scatter it replaces — the
-    # backward then falls back to segment_sum.
-    pair_rows: jax.Array | None = None
-    # [F + 1] int32, or None: POOL_ALIGN-slot-block offsets of each
-    # face's pool run (pool_offs[f] * POOL_ALIGN is face f's first
-    # slot; pool_offs[F] the total). The backward reduces pool rows in
-    # POOL_ALIGN-row blocks, then gathers each face's
-    # <= ceil(expand_cap/POOL_ALIGN) blocks.
-    pool_offs: jax.Array | None = None
-    # [budget_rows, table_width] f32, or None: the gathered per-entry
-    # face-table rows. NOT set by bin_faces_packed — the forward path
-    # (ops.raster._forward_impl) attaches its gather so the backward
-    # reuses it from the custom_vjp residuals instead of re-gathering
-    # ~19 MB (same table; pure data, no autodiff flow through it).
-    rows: jax.Array | None = None
 
 
 def packed_grid(height: int, width: int, tile_h: int, tile_w: int):
@@ -353,8 +313,8 @@ def auto_packed_budget(num_faces: int, height: int, width: int,
     nsid = total * strips * groups
     # The nsid/8 term covers moderate-coverage scenes; the PACK_ITERS/2
     # term pays for expected per-tile chunk-granularity padding. Slack is
-    # not free here: the packed engine streams budget-proportional spread
-    # rows, so the margin is modest and overflow-flagged.
+    # not free: binning cost scales with the budget, so the margin is
+    # modest and overflow-flagged.
     budget = num_faces + nsid // 8 + total * (PACK_ITERS // 2)
     if expand_cap is not None:
         # Hard job-count bound: jobs <= F * E, iterations <= jobs (all in
@@ -364,10 +324,8 @@ def auto_packed_budget(num_faces: int, height: int, width: int,
         if num_faces * expand_cap >= 32 * nsid:
             # Dense regime (>= 32 jobs per subtile on average): the
             # per-strip group-max tracks the group-mean closely, so a
-            # 1.4x margin suffices. Every per-budget-row cost (entry
-            # construction, table-row gather, chunk streaming) scales
-            # with this number — at 256^2/10k faces the 2x margin alone
-            # cost ~0.5 ms/step. Overflow stays flagged and
+            # 1.4x margin suffices; every per-budget-row cost scales
+            # with this number. Overflow stays flagged and
             # suggest_config still measures the exact requirement.
             bound = min(
                 bound,
@@ -415,9 +373,8 @@ def bin_faces_packed(
 ) -> PackedBins:
     """Lane-packed subtile binning (see :class:`PackedBins`).
 
-    Pipeline (chosen from measured v5e primitive costs — sorts are cheap,
-    ~1.3 ns/element; scatters cost ~6.6 ns/update; NSID-wide searchsorted
-    is 10x slower than a sort):
+    Pipeline (sorts and cummaxes in place of scatters and searchsorted
+    wherever the two are interchangeable):
 
     1. enumerate (subtile sid, face) candidates into a FLAT POOL of
        8-aligned per-face runs (cost scales with actual jobs, not
@@ -437,18 +394,15 @@ def bin_faces_packed(
        nsid header slots + cummax give every sorted pair its budget row
        (block-row = strip start + in-run rank, lane = sid % groups);
     6. entries are BUILT BY ONE PAIR SCATTER onto strip-aware sentinel
-       defaults. The placement math is shared verbatim with the
-       backward's pair_rows inverse (round 3's separate gather
-       construction cost ~1.3 ms in-graph vs ~0.7 ms for the scatter).
+       defaults.
 
-    ``work_cap`` (round 5): every stage AFTER the merged sort runs on the
+    ``work_cap``: every stage AFTER the merged sort runs on the
     first ``work_cap`` sorted elements only. Invalid candidates — empty
     pool slots, edge-filtered bbox candidates, truncated jobs — carry the
     sentinel sid ``nsid`` and sort to the END, so a cap of
     (nsid + real_jobs * margin) covers all live content: the rank
     cummaxes, the counts compaction sort, the placement math and the
-    entries scatter (0.76 ms of the 2.35 ms binning at 1024^2/10k faces,
-    measured r5) stop paying for the dead tail (~half the merged array
+    entries scatter stop paying for the dead tail (~half the merged array
     at honest caps, where the pool is sized for bbox candidates but
     ~1/3 are edge-filtered). Headers always sort inside any prefix that
     holds live pairs (a run's header precedes its pairs), so truncation
@@ -459,7 +413,7 @@ def bin_faces_packed(
 
     ``_stage`` > 0 returns early with a checksum scalar after pipeline
     stage N (profiling hook for tools/prof_binning.py — cumulative stage
-    timings on the real chip without duplicating this function).
+    timings without duplicating this function).
     """
     bxmin, bxmax, bymin, bymax = _bbox_cols(bbox)
     nf = bxmin.shape[0]
@@ -478,9 +432,8 @@ def bin_faces_packed(
 
     # --- 1. candidate pool (flat, 8-aligned per-face runs) -------------
     # Candidates used to live in a uniform [F, expand_cap] grid, which
-    # priced EVERY face at the worst face's span: honest (untruncated)
-    # caps on the 10k-face 1024^2 bench scene need expand = 25 and made
-    # binning 4.3 ms, 2.8x the (truncating) expand = 8 run. The pool
+    # priced EVERY face at the worst face's span (honest caps on the
+    # 10k-face 1024^2 bench scene need expand = 25). The pool
     # instead gives face f a POOL_ALIGN-aligned run of its own n_jobs
     # slots at a cumsum offset, so total work scales with ACTUAL jobs.
     # Slot -> face resolves by a start-marker scatter (F updates) +
@@ -529,17 +482,15 @@ def bin_faces_packed(
         ftbl_cols + [jnp.zeros((nf,), jnp.float32)] * pad_cols, axis=1
     )
     frow = ftbl[jnp.clip(face_of, 0, nf - 1)]        # [pool_cap, 8/16]
-    # Column reads of a [pool, 16] array are strided lane accesses that
-    # scalarize into a relayout pass EACH (~0.5 ms across the 13 reads
-    # below at pool ~100k, measured round 4); one explicit transpose
-    # makes every per-field read a free row slice.
+    # One explicit transpose makes every per-field read below a
+    # contiguous row slice instead of a strided column read.
     frow_t = frow.T                                  # [8/16, pool_cap]
 
     p_iota = jnp.arange(pool_cap, dtype=jnp.int32)
     e = p_iota - s0_of                               # candidate rank
     sx = jnp.maximum(frow_t[2].astype(jnp.int32), 1)
-    # e // sx via f32 division + one fixup step: int32 division has no
-    # VPU hardware and lowers to a long instruction sequence. Both
+    # e // sx via f32 division + one fixup step: int32 division lowers to
+    # a long instruction sequence. Both
     # operands are < 2^17 so the f32 quotient is within one ulp of the
     # true value and can only err by rounding UP across an integer
     # boundary — ey * sx > e detects exactly that case.
@@ -559,9 +510,8 @@ def bin_faces_packed(
         # acceptance only costs kernel time; the half-pixel slack makes
         # false rejection impossible under f32 rounding. Cuts the
         # silhouette-heavy tail of bbox jobs (~1/3 on the bench sphere).
-        # All three edges evaluate as ONE stacked [3, pool] chain: the
-        # per-edge loop was ~30 separate sub-MB XLA dispatches (~0.5 ms
-        # at pool ~100k, r5 profile) for ~30 us of SOL traffic.
+        # All three edges evaluate as ONE stacked [3, pool] chain instead
+        # of ~30 separate small XLA ops.
         rx0 = gx.astype(jnp.float32) * SUB_W + 0.5 - frow_t[4]
         ry0 = gy.astype(jnp.float32) * SUB_H + 0.5 - frow_t[5]
         a3 = frow_t[6:12:2]                                # [3, pool]
@@ -591,16 +541,7 @@ def bin_faces_packed(
     hdr_face = jnp.full((nsid,), -1, jnp.int32)
     sid_all = jnp.concatenate([sid_p, hdr_sid])
     face_all = jnp.concatenate([face_p, hdr_face])
-    # Backward pair backpointers ride the sort as a payload: q is the
-    # pool slot (face-major by construction), headers at q >= pool_cap.
-    want_pair_rows = pool_cap <= 4 * budget_rows
-    if want_pair_rows:
-        q_all = jnp.concatenate([p_iota, pool_cap + hdr_sid])
-        sid_s, face_s, q_s = jax.lax.sort(
-            (sid_all, face_all, q_all), num_keys=2
-        )
-    else:
-        sid_s, face_s = jax.lax.sort((sid_all, face_all), num_keys=2)
+    sid_s, face_s = jax.lax.sort((sid_all, face_all), num_keys=2)
     n_sorted = sid_s.shape[0]
 
     # Live-prefix slice (see docstring): every stage below runs on the
@@ -678,11 +619,7 @@ def bin_faces_packed(
     # position a_start[h] (runs are header-inclusive, so a_start is
     # strictly increasing and header slots are distinct), both fields are
     # non-decreasing in sid, so an nsid-slot scatter + cummax propagates
-    # them to every pair of the run. The same placement serves the
-    # forward (entries scatter, step 6) and the backward (pair_rows
-    # inverse below) — round 3's separate [8, r8] destination-grid
-    # scans + [n_merged, 8] broadcast + row-gather construction measured
-    # ~1.3 ms in-graph at 1024^2/10k faces vs ~0.7 ms for the scatter.
+    # them to every pair of the run (entries scatter, step 6).
     r8 = budget_rows // GROUPS
     counts_flat = counts.reshape(-1)                      # [nsid]
     run_len = counts_flat + 1                             # + header
@@ -746,40 +683,8 @@ def bin_faces_packed(
     if _stage == 6:
         return jnp.sum(entries) + jnp.sum(rank)
 
-    # --- backward pair backpointers (inverse of the entries scatter) ---
-    # A second (q, row) sort unsorts the placement rows to the
-    # face-major [F, E] pool grid. Consumed only by ``packed_bwd``;
-    # forward-only graphs DCE this block.
-    if want_pair_rows:
-        if c_live < n_sorted:
-            # Sliced-away candidates hold no budget row: sentinel.
-            row_full = jnp.concatenate([
-                row_val,
-                jnp.full((n_sorted - c_live,), budget_rows, jnp.int32),
-            ])
-        else:
-            row_full = row_val
-        _, row_sorted = jax.lax.sort((q_s, row_full), num_keys=1)
-        pair_rows = row_sorted[:pool_cap]
-        pool_offs = jnp.concatenate(
-            [boff, jnp.sum(blocks, keepdims=True)]
-        ).astype(jnp.int32)
-    else:
-        pair_rows = None
-        pool_offs = None
     if _stage == 7:
-        chk = jnp.sum(entries)
-        if pair_rows is not None:
-            chk = chk + jnp.sum(pair_rows) + jnp.sum(pool_offs)
-        return chk
-
-    # --- chunk -> tile map via interval marks -------------------------
-    cmarks = jnp.zeros((budget_chunks,), jnp.int32).at[
-        jnp.clip(start_block, 0, budget_chunks - 1)
-    ].add(1)
-    chunk_tile = jnp.clip(
-        _scan_sum(cmarks) - 1, 0, total - 1
-    ).astype(jnp.int32)
+        return jnp.sum(entries)
 
     # Truncated jobs (rows past a tile's chunk allocation) are exactly the
     # tiles with n_iters_eff < tile_iters: a job of tile-local iteration i
@@ -792,12 +697,9 @@ def bin_faces_packed(
     )
     return PackedBins(
         entries=entries,
-        chunk_tile=chunk_tile,
         start_block=start_block,
         n_iters=n_iters_eff.astype(jnp.int32),
         overflow=overflow,
         iter_off=iter_off.reshape(-1).astype(jnp.int32),
         strip_iters=n_iter.reshape(-1).astype(jnp.int32),
-        pair_rows=pair_rows,
-        pool_offs=pool_offs,
     )

@@ -1,6 +1,6 @@
 """Backward pass: exact interior gradients + occlusion-aware edge gradients.
 
-TPU-native replacement for the reference's CUDA/GL gradient op
+Equivalent of the reference's CUDA/GL gradient op
 (``csrc/rasterise_grad_egl.cpp`` — REGISTER_OP("RasteriseGrad"); SURVEY.md
 sections 2.1 and 3.2). Semantics (shared with the oracle in
 ``dirt_tpu/ref/slowref.py`` — see its module docstring for the derivation):
@@ -18,12 +18,19 @@ Anchor cotangents: every plane depends on the anchor (ax, ay) only through
 ``d_ay = -sum_p b_p * d_c0_p`` over all planes of the face (edges, z, den,
 attribute numerators). They are derived after the per-face scatter.
 
-Performance notes (v5e, 1024^2, 10k tris): per-pixel cotangents are
-accumulated as individual [H, W] columns and stacked once — in-place
-``.at[col].add`` updates on an [H, W, 24] array make XLA materialize the
-full array per update (~12 ms for the 36 boundary-term updates). Interior
-terms use the identity ``num_c = pixels_c / recip`` so no attribute-plane
-gather is needed; only the 17 geometry columns are gathered by face id.
+Shape of the computation (the same as the reference's CUDA backward: one
+thread per pixel, each reading its face's data and adding into the
+gradients): a row gather of each pixel's face planes, the per-pixel
+cotangent fields, and one ``segment_sum`` onto faces. Per-pixel cotangents
+are accumulated as individual [H, W] columns and stacked once — in-place
+``.at[col].add`` updates on an [H, W, 24] array would make XLA materialize
+the full array per update. Interior terms use the identity
+``num_c = pixels_c / recip`` so no attribute-plane gather is needed; only
+the geometry columns are gathered by face id.
+
+On the GPU ``segment_sum`` lowers to atomic adds whose order changes from
+run to run, so gradients agree with the CPU and with the float64 oracle
+to f32 summation-order tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -40,8 +47,6 @@ from dirt_tpu.ops.triangle_setup import (
     GEO_WIDTH,
     GEO_Z,
 )
-
-GEO_USED_END = GEO_DEN + 3  # == triangle_setup.GEO_USED
 
 A_EPS = 1e-12
 
@@ -98,7 +103,7 @@ def pixel_cotangents(g16cf, covered, fid, zbuf, pixels_cf, grad_cf):
 
     All multi-channel inputs are channels-FIRST: slicing the leading
     dimension is free, whereas column slices of an [H, W, 24] array are
-    stride-24 lane reads (each a full relayout pass on TPU).
+    strided reads.
 
     Args:
         g16cf: [GEO_WIDTH>=17, H, W] the owning face's geometry row per
@@ -126,20 +131,15 @@ def pixel_cotangents(g16cf, covered, fid, zbuf, pixels_cf, grad_cf):
 
 def pixel_cotangents_core(g16cf, covered, fid_pair, zbuf, pixels_cf,
                           grad_cf, nbrs, xg, yg):
-    """Shift-free cotangent engine, usable inside Pallas kernels.
+    """Shift-free cotangent engine over precomputed neighbor data.
 
     Args:
         g16cf: indexable per-plane maps (``g16cf[k]`` -> [H, W]); columns
             follow the geo layout of ``triangle_setup``.
-        fid_pair: [H, W] int32 face ids, used for the fid != nfid pair test
-            (may be None when every nbrs entry is pre-combined).
-        nbrs: list over :func:`boundary_cases` of either (nfid, nz, sval)
-            from :func:`neighbor_maps`, or a PRE-COMBINED 2-tuple
-            (active, sval) where ``active`` is the bool pair & front test
-            already evaluated (packed path: the tests run once at XLA
-            level and ride the layout swap as one int32 bit plane instead
-            of 8 full nfid/nz planes). Both are computed OUTSIDE the
-            kernel so tile kernels see cross-tile neighbors.
+        fid_pair: [H, W] int32 face ids, used for the fid != nfid pair test.
+        nbrs: list over :func:`boundary_cases` of (nfid, nz, sval) from
+            :func:`neighbor_maps`, computed by the caller so a row band or
+            a mesh slab sees the neighbors across its border.
         xg, yg: [H, W] global pixel-center coordinates.
     """
     height, width = xg.shape
@@ -186,14 +186,10 @@ def pixel_cotangents_core(g16cf, covered, fid_pair, zbuf, pixels_cf,
     for case, (axis, offset, horizontal, strict) in enumerate(
         boundary_cases()
     ):
-        if len(nbrs[case]) == 2:
-            abit, s_val = nbrs[case]
-            active = abit & covered
-        else:
-            nfid, nz, s_val = nbrs[case]
-            pair = (fid_pair != nfid) & (nfid != -2) & covered
-            front = (zbuf < nz) if strict else (zbuf <= nz)
-            active = pair & front
+        nfid, nz, s_val = nbrs[case]
+        pair = (fid_pair != nfid) & (nfid != -2) & covered
+        front = (zbuf < nz) if strict else (zbuf <= nz)
+        active = pair & front
 
         # Crossing-edge selection on the own (front) face's edges.
         chosen = jnp.zeros((height, width), jnp.bool_)
@@ -246,9 +242,8 @@ def anchor_cotangents(geo, att, d_geo, d_att):
     ``c_global = c0 - a*ax - b*ay``, so d_ax = -sum_p a_p * d_c0_p (resp. b
     for ay) over all planes p of the face.
 
-    Implemented with lane ROLLS + column masks: per-column strided slices
-    of [F, 24]/[F, 3C] arrays make XLA materialize a scalarized
-    column-major relayout (measured 0.5 ms at 10k faces).
+    Implemented with rolls + column masks instead of per-column strided
+    slices of the [F, 24] / [F, 3C] arrays.
     """
     channels3 = att.shape[1]
     plane_a_cols = [GEO_EDGE, GEO_EDGE + 3, GEO_EDGE + 6, GEO_Z, GEO_DEN]
@@ -284,227 +279,6 @@ def anchor_cotangents(geo, att, d_geo, d_att):
     )
 
 
-def pack_cotangent_tiles(d_geo_cols, d_att_cols, covered, fid,
-                         tile_h: int, tile_w: int):
-    """Stack scatterable cotangent columns and pad to tile multiples.
-
-    Column order (the contract with the scatter kernels and
-    :func:`assemble_face_gradients`): 9 edge, 3 denominator, 3C attribute.
-    Returns (cot [K, Hp, Wp], fid_p [Hp, Wp] with -1 padding).
-    """
-    height, width = fid.shape
-    scatter_cols = (
-        [d_geo_cols[GEO_EDGE + k] for k in range(9)]
-        + [d_geo_cols[GEO_DEN + k] for k in range(3)]
-        + d_att_cols
-    )
-    cot = jnp.stack(scatter_cols, axis=0)
-    cot = jnp.where(covered[None], cot, 0.0)
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    cot = jnp.pad(cot, ((0, 0), (0, hp - height), (0, wp - width)))
-    fid_p = jnp.pad(
-        jnp.where(covered, fid, -1),
-        ((0, hp - height), (0, wp - width)), constant_values=-1
-    )
-    return cot, fid_p
-
-
-def assemble_face_gradients(geo, att, rows, channels: int):
-    """Unpack scattered per-face rows into (d_geo, d_att) with anchors."""
-    num_faces = geo.shape[0]
-    zeros2 = jnp.zeros((num_faces, GEO_EDGE), jnp.float32)
-    zeros_z = jnp.zeros((num_faces, GEO_DEN - GEO_Z), jnp.float32)
-    zeros_pad = jnp.zeros((num_faces, GEO_WIDTH - GEO_USED_END), jnp.float32)
-    d_geo = jnp.concatenate(
-        [zeros2, rows[:, 0:9], zeros_z, rows[:, 9:12], zeros_pad], axis=1
-    )
-    d_att = rows[:, 12:12 + 3 * channels]
-    return anchor_cotangents(geo, att, d_geo, d_att), d_att
-
-
-def backward_scatter(geo, att, fid, zbuf, pixels, grad_pixels,
-                     scatter_fn, tile_h: int, tile_w: int,
-                     own_mask=None):
-    """Gradients w.r.t. plane coefficients via a Pallas face scatter.
-
-    Same semantics as :func:`backward_jax`, but the per-pixel -> per-face
-    reduction runs in a Pallas kernel (per-tile MXU one-hot matmuls; see
-    ``ops.scatter``) instead of a flat H*W-row ``segment_sum``.
-
-    Args:
-        scatter_fn: callable (cot [K, Hp, Wp], fid [Hp, Wp]) -> [F, K]
-            summing each pixel's cotangent row onto its owning face
-            (``ops.scatter.scatter_to_faces`` with the forward's dense bins,
-            or ``scatter_to_faces_csr`` with its CSR bins).
-    """
-    geo = jnp.asarray(geo, jnp.float32)
-    att = jnp.asarray(att, jnp.float32)
-    num_faces = geo.shape[0]
-    channels = pixels.shape[-1]
-    height, width = fid.shape
-
-    covered = fid >= 0
-    if own_mask is not None:
-        covered = covered & own_mask
-    safe_fid = jnp.where(covered, fid, 0)
-    g16cf = jnp.transpose(geo[safe_fid], (2, 0, 1))   # [24, H, W]
-    pixels_cf = jnp.transpose(pixels, (2, 0, 1))      # [C, H, W]
-    grad_cf = jnp.transpose(grad_pixels, (2, 0, 1))
-
-    d_geo_cols, d_att_cols = pixel_cotangents(
-        g16cf, covered, fid, zbuf, pixels_cf, grad_cf
-    )
-    cot, fid_p = pack_cotangent_tiles(
-        d_geo_cols, d_att_cols, covered, fid, tile_h, tile_w
-    )
-    rows = scatter_fn(cot, fid_p)                      # [F, 12 + 3C]
-    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
-    d_background = jnp.where(covered[..., None], 0.0, grad_pixels)
-    return d_geo, d_att, d_background
-
-
-def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels,
-                   bins, counts, tile_h: int, tile_w: int):
-    """Dense-path backward via the single fused Pallas kernel.
-
-    Same semantics as :func:`backward_scatter`; see ``ops.fused_bwd``.
-    """
-    from dirt_tpu.ops.binning import CHUNK
-    from dirt_tpu.ops.fused_bwd import G_ROWS, fused_backward_rows
-
-    geo = jnp.asarray(geo, jnp.float32)
-    att = jnp.asarray(att, jnp.float32)
-    num_faces = geo.shape[0]
-    channels = pixels.shape[-1]
-    height, width = fid.shape
-
-    covered = fid >= 0
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    pad2 = ((0, hp - height), (0, wp - width))
-    # Padding rows use fid -2 / BIG_Z: they neither own cotangents nor
-    # pair with true image-border pixels (matching the crop semantics).
-    fid_p = jnp.pad(fid, pad2, constant_values=-2)
-    zbuf_p = jnp.pad(zbuf, pad2, constant_values=BIG_Z)
-    pix_cf = jnp.pad(
-        jnp.transpose(pixels, (2, 0, 1)), ((0, 0),) + pad2
-    )
-    grad_cf = jnp.pad(
-        jnp.transpose(grad_pixels, (2, 0, 1)), ((0, 0),) + pad2
-    )
-    nbrs = neighbor_maps(fid_p, zbuf_p, pix_cf, grad_cf)
-    nfid4 = jnp.stack([n[0] for n in nbrs])
-    nz4 = jnp.stack([n[1] for n in nbrs])
-    sval4 = jnp.stack([n[2] for n in nbrs])
-
-    total, cap = bins.shape
-    if cap % CHUNK:
-        pad = CHUNK - cap % CHUNK
-        bins = jnp.pad(bins, ((0, 0), (0, pad)), constant_values=num_faces)
-        cap += pad
-    geo17 = jnp.concatenate(
-        [geo[:, :G_ROWS], jnp.zeros((1, G_ROWS), jnp.float32)], axis=0
-    )
-    binned17 = geo17[bins.reshape(-1)]
-
-    rows = fused_backward_rows(
-        binned17, bins, counts, fid_p, zbuf_p, pix_cf, grad_cf,
-        nfid4, nz4, sval4, num_faces + 1,
-        tile_h=tile_h, tile_w=tile_w,
-    )[:num_faces]
-
-    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
-    d_background = jnp.where(covered[..., None], 0.0, grad_pixels)
-    return d_geo, d_att, d_background
-
-
-def backward_fused_csr(geo, att, fid, zbuf, pixels, grad_pixels,
-                       entry_face, start_block, counts, num_faces: int,
-                       tile_h: int, tile_w: int, max_chunks: int):
-    """Streaming-path backward via the fused CSR kernel (ops.fused_bwd)."""
-    from dirt_tpu.ops.fused_bwd import G_ROWS, fused_backward_rows_csr
-
-    geo = jnp.asarray(geo, jnp.float32)
-    att = jnp.asarray(att, jnp.float32)
-    channels = pixels.shape[-1]
-    height, width = fid.shape
-
-    covered = fid >= 0
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    pad2 = ((0, hp - height), (0, wp - width))
-    fid_p = jnp.pad(fid, pad2, constant_values=-2)
-    zbuf_p = jnp.pad(zbuf, pad2, constant_values=BIG_Z)
-    pix_cf = jnp.pad(jnp.transpose(pixels, (2, 0, 1)), ((0, 0),) + pad2)
-    grad_cf = jnp.pad(
-        jnp.transpose(grad_pixels, (2, 0, 1)), ((0, 0),) + pad2
-    )
-    nbrs = neighbor_maps(fid_p, zbuf_p, pix_cf, grad_cf)
-    nfid4 = jnp.stack([n[0] for n in nbrs])
-    nz4 = jnp.stack([n[1] for n in nbrs])
-    sval4 = jnp.stack([n[2] for n in nbrs])
-
-    geo17 = jnp.concatenate(
-        [geo[:, :G_ROWS], jnp.zeros((1, G_ROWS), jnp.float32)], axis=0
-    )
-    binned17 = geo17[entry_face]
-
-    rows = fused_backward_rows_csr(
-        binned17, entry_face, start_block, counts, fid_p, zbuf_p,
-        pix_cf, grad_cf, nfid4, nz4, sval4, num_faces,
-        tile_h=tile_h, tile_w=tile_w, max_chunks=max_chunks,
-    )
-
-    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
-    d_background = jnp.where(covered[..., None], 0.0, grad_pixels)
-    return d_geo, d_att, d_background
-
-
-def backward_scatter_halo(geo, att, fid_e, zbuf_e, pixels_e, grad_e,
-                          own_mask, scatter_fn, tile_h: int, tile_w: int):
-    """Scatter-engine backward over row-halo-extended slab arrays.
-
-    For the sharded slab path (``parallel.sharding``): inputs carry one
-    halo row on each side ([H+2, W, ...]); per-pixel cotangents are
-    computed on the extended arrays (so cross-slab boundary pairs see the
-    neighbor row), then sliced back to the slab's own rows before the
-    per-face scatter — own_mask guarantees halo rows contribute nothing.
-    ``geo``/``att`` must be expressed in the extended (y+1) coordinates.
-    """
-    geo = jnp.asarray(geo, jnp.float32)
-    att = jnp.asarray(att, jnp.float32)
-    num_faces = geo.shape[0]
-    channels = pixels_e.shape[-1]
-
-    covered_e = (fid_e >= 0) & own_mask
-    safe_fid = jnp.where(covered_e, fid_e, 0)
-    g16cf = jnp.transpose(geo[safe_fid], (2, 0, 1))
-    pixels_cf = jnp.transpose(pixels_e, (2, 0, 1))
-    grad_cf = jnp.transpose(grad_e, (2, 0, 1))
-
-    d_geo_cols, d_att_cols = pixel_cotangents(
-        g16cf, covered_e, fid_e, zbuf_e, pixels_cf, grad_cf
-    )
-
-    # Slice back to the slab's own rows (halo rows are non-owned: zero).
-    covered = covered_e[1:-1]
-    fid = fid_e[1:-1]
-    height, width = fid.shape
-    d_geo_sliced = {k: d_geo_cols[k][1:-1] for k in
-                    list(range(GEO_EDGE, GEO_EDGE + 9))
-                    + list(range(GEO_DEN, GEO_DEN + 3))}
-    d_geo_own = [d_geo_sliced.get(k, None) for k in range(GEO_WIDTH)]
-    d_att_own = [c[1:-1] for c in d_att_cols]
-    cot, fid_p = pack_cotangent_tiles(
-        d_geo_own, d_att_own, covered, fid, tile_h, tile_w
-    )
-    rows = scatter_fn(cot, fid_p)
-    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
-    d_background_e = jnp.where(covered_e[..., None], 0.0, grad_e)
-    return d_geo, d_att, d_background_e
-
-
 def backward_jax(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     """Gradients w.r.t. plane coefficients (vectorized pure-JAX engine).
 
@@ -524,37 +298,75 @@ def backward_jax(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     """
     geo = jnp.asarray(geo, jnp.float32)
     att = jnp.asarray(att, jnp.float32)
-    num_faces = geo.shape[0]
-    channels = pixels.shape[-1]
+    cot, covered = face_cotangent_columns(
+        geo, fid, zbuf, pixels, grad_pixels, own_mask
+    )
+    rows = face_rows(cot, fid, covered, geo.shape[0])
+    d_geo, d_att = assemble_face_gradients(geo, att, rows)
+    d_background = jnp.where(covered[..., None], 0.0, grad_pixels)
+    return d_geo, d_att, d_background
 
+
+def face_cotangent_columns(geo, fid, zbuf, pixels, grad_pixels,
+                           own_mask=None):
+    """Per-pixel cotangents of the owning face's plane coefficients.
+
+    Returns (cot [12 + 3C, H, W], covered [H, W]): the columns that reach
+    the faces — 9 edge (a, b, c0), 3 denominator, then 3C attribute
+    numerators — zero wherever ``covered`` is False. The anchor and z
+    columns are zero per pixel (anchors are derived per face by
+    :func:`assemble_face_gradients`; z gets no gradient).
+    """
     covered = fid >= 0
     if own_mask is not None:
         covered = covered & own_mask
-    safe_fid = jnp.maximum(fid, 0)
     # Gather rows once, then one transpose to channels-first; per-plane
     # slices of the [24, H, W] layout are free.
-    g16cf = jnp.transpose(geo[safe_fid], (2, 0, 1))   # [24, H, W]
+    g16cf = jnp.transpose(geo[jnp.maximum(fid, 0)], (2, 0, 1))
     pixels_cf = jnp.transpose(pixels, (2, 0, 1))      # [C, H, W]
     grad_cf = jnp.transpose(grad_pixels, (2, 0, 1))
-
     d_geo_cols, d_att_cols = pixel_cotangents(
         g16cf, covered, fid, zbuf, pixels_cf, grad_cf
     )
+    return stack_face_columns(d_geo_cols, d_att_cols, covered), covered
 
-    # ---- scatter to faces ------------------------------------------------
-    seg = safe_fid.reshape(-1)
-    weight = covered.reshape(-1, 1).astype(jnp.float32)
-    # Stack along axis 0 (cheap concat) and transpose once; stacking along
-    # the last axis would interleave-relayout every column.
-    d_geo_pix = jnp.stack(d_geo_cols, axis=0).reshape(GEO_WIDTH, -1).T
-    d_att_pix = jnp.stack(d_att_cols, axis=0).reshape(3 * channels, -1).T
-    d_geo = jax.ops.segment_sum(
-        d_geo_pix * weight, seg, num_segments=num_faces
+
+def stack_face_columns(d_geo_cols, d_att_cols, covered):
+    """[12 + 3C, H, W] face-reaching columns of ``pixel_cotangents_core``
+    output, zero off ``covered``."""
+    cols = (
+        [d_geo_cols[GEO_EDGE + k] for k in range(9)]
+        + [d_geo_cols[GEO_DEN + k] for k in range(3)]
+        + d_att_cols
     )
-    d_att = jax.ops.segment_sum(
-        d_att_pix * weight, seg, num_segments=num_faces
+    return jnp.where(covered[None], jnp.stack(cols), 0.0)
+
+
+def face_rows(cot, fid, covered, num_faces: int):
+    """[F, K] sums of each face's per-pixel cotangent columns.
+
+    One ``segment_sum`` (atomic adds on the GPU). Uncovered pixels get an
+    out-of-range segment id, so they are dropped instead of all adding
+    zeros into one face's row.
+    """
+    k_cols = cot.shape[0]
+    seg = jnp.where(covered, fid, num_faces).reshape(-1)
+    return jax.ops.segment_sum(
+        cot.reshape(k_cols, -1).T, seg, num_segments=num_faces
     )
 
-    d_geo = anchor_cotangents(geo, att, d_geo, d_att)
-    d_background = jnp.where(covered[..., None], 0.0, grad_pixels)
-    return d_geo, d_att, d_background
+
+def unpack_face_rows(rows):
+    """[F, 12 + 3C] face rows -> (d_geo [F, 24] without anchors, d_att)."""
+    zeros = lambda n: jnp.zeros((rows.shape[0], n), jnp.float32)
+    d_geo = jnp.concatenate([
+        zeros(GEO_EDGE), rows[:, 0:9], zeros(GEO_DEN - GEO_Z),
+        rows[:, 9:12], zeros(GEO_WIDTH - GEO_DEN - 3),
+    ], axis=1)
+    return d_geo, rows[:, 12:]
+
+
+def assemble_face_gradients(geo, att, rows):
+    """Face rows -> (d_geo [F, 24], d_att [F, 3C]), anchors included."""
+    d_geo, d_att = unpack_face_rows(rows)
+    return anchor_cotangents(geo, att, d_geo, d_att), d_att

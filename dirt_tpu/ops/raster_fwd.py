@@ -1,707 +1,324 @@
-"""Pallas forward rasterization kernel.
+"""Forward scan conversion: one Pallas kernel (Triton route) and its plain twin.
 
-TPU-native replacement for the reference's GL forward op
-(``csrc/rasterise_egl.cpp`` — REGISTER_OP("Rasterise"); SURVEY.md section
-2.1): the grid walks image tiles; each grid step scan-converts that tile's
-binned faces with a z-buffered fori_loop. All per-pixel work is affine plane
-evaluation on the VPU plus one reciprocal for the perspective division.
+Equivalent of the reference's GL forward op (``csrc/rasterise_egl.cpp`` —
+REGISTER_OP("Rasterise"); SURVEY.md section 2.1). Every engine's binning
+(``ops.binning``: dense, CSR, packed) is reduced to the same shape here: a
+grid of pixel BLOCKS of ``BLOCK_H x tile_w`` image pixels, and for each
+block a LIST of face ids, read as ``ids[base + k * groups + g]`` for list
+slot ``k < count`` and column group ``g = column // (tile_w // groups)``.
+Dense and CSR bins have one group (the whole strip walks its tile's list);
+packed bins have 8 groups of 16 columns, each walking its own 8x16
+subtile's list in lockstep.
 
-Data movement (TPU-first design): the packed per-face plane table
-(geometry planes + attribute numerator planes, one row per face) stays
-**resident in VMEM** for the whole grid, and the kernel gathers each binned
-face's row with a dynamic sublane index. Per-tile face-id lists are small
-int32 blocks in SMEM, so loop indices and ids are scalar reads. This
-replaces the XLA-level ``table[bins]`` pre-gather, which materializes a
-[T, cap, width] tensor through TPU's slow row-gather path (measured ~35 ms
-for 256x1024 rows — more than the whole kernel).
+``raster_forward`` runs a Triton kernel: one program per block keeps z,
+face id and the C attribute values of its pixels in registers while it
+walks the list, loading each face's plane row by id from the face table
+(a few MB at most, L2-resident). Faces are visited in ascending id order
+within each list, so on exact z ties the lowest face id wins.
 
-Layouts: images are channels-first [C, H, W] inside the op (lane dimension =
-W, 128-aligned); the public wrapper converts from/to [H, W, C].
+``raster_forward_xla`` is the same semantics as a plain ``lax.fori_loop``
+over list slots that evaluates every block's pixels per step; it is the
+reference the kernel is checked against on the card.
+
+Layouts: images are channels-first [C, H, W] inside the op; the public
+wrapper converts from/to [H, W, C].
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from dirt_tpu import config as cfg
-from dirt_tpu.ops.binning import CHUNK
+from dirt_tpu.ops import binning
 from dirt_tpu.ops.triangle_setup import GEO_USED
 
 BIG_Z = 3.0e38  # z-buffer clear value (acts as +inf in f32 compares)
 
+# Image rows per kernel program. One packed strip is SUB_H rows, so the
+# packed engine's blocks must be exactly this tall; the dense and CSR
+# engines split each bin tile into tile_h / BLOCK_H programs that walk the
+# same list.
+BLOCK_H = binning.SUB_H
+# Warps per program: 4 was fastest or tied on every bench scene of an H100
+# sweep over 1, 2, 4 and 8 (PERF.md).
+NUM_WARPS = 4
 
-def _fwd_kernel(
-    counts_ref, bins_ref, table_ref, bg_ref,
-    pix_ref, fid_ref, z_ref,
-    *, channels: int, tile_h: int, tile_w: int, tiles_x: int,
-):
-    t = pl.program_id(0)
-    ty = t // tiles_x
-    tx = t % tiles_x
 
-    col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
-    row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
-    xg = (tx * tile_w + col).astype(jnp.float32) + 0.5
-    yg = (ty * tile_h + row).astype(jnp.float32) + 0.5
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["ids", "base", "count"], meta_fields=["groups", "id_shift"],
+)
+@dataclasses.dataclass(frozen=True)
+class FaceLists:
+    """Per-block face lists (see module docstring).
 
-    count = counts_ref[t]  # scalar-prefetch array, full [T] in SMEM
+    ``ids >> id_shift`` is a face id in [0, F]; F is the sentinel face
+    (its table row covers nothing). ``groups`` and ``id_shift`` are static.
+    """
 
-    def body(i, carry):
-        zbuf, fid, pix = carry
-        face_id = bins_ref[0, 0, i]       # scalar read from SMEM
-        g = table_ref[face_id, :]         # dynamic row gather from VMEM
-        dx = xg - g[0]   # anchored coordinates (see triangle_setup)
-        dy = yg - g[1]
-        e0 = g[2] * dx + g[3] * dy + g[4]
-        e1 = g[5] * dx + g[6] * dy + g[7]
-        e2 = g[8] * dx + g[9] * dy + g[10]
-        inside = jnp.minimum(jnp.minimum(e0, e1), e2) >= 0.0
-        zv = g[11] * dx + g[12] * dy + g[13]
-        mask = inside & (zv < zbuf) & (zv >= -1.0) & (zv <= 1.0)
-        den = g[14] * dx + g[15] * dy + g[16]
-        recip = 1.0 / den
-        new_pix = tuple(
-            jnp.where(
-                mask,
-                (
-                    g[GEO_USED + 3 * c] * dx
-                    + g[GEO_USED + 3 * c + 1] * dy
-                    + g[GEO_USED + 3 * c + 2]
-                ) * recip,
-                pix[c],
-            )
-            for c in range(channels)
+    ids: jax.Array    # [N] int32 list storage
+    base: jax.Array   # [Hp / BLOCK_H, Wp / tile_w] int32 first slot
+    count: jax.Array  # [Hp / BLOCK_H, Wp / tile_w] int32 list length
+    groups: int       # column groups per block (static)
+    id_shift: int     # right shift that turns a stored entry into a face id
+
+
+def _per_block(tile_vals, tiles_y, tiles_x, strips):
+    """[T] per-tile values -> [tiles_y * strips, tiles_x] per block."""
+    v = tile_vals.reshape(tiles_y, 1, tiles_x)
+    return jnp.broadcast_to(v, (tiles_y, strips, tiles_x)).reshape(
+        tiles_y * strips, tiles_x
+    ).astype(jnp.int32)
+
+
+def dense_lists(bins: binning.BinningResult, tiles_y, tiles_x, tile_h):
+    """Face lists of the dense engine: row t of ``bins.bins`` per tile."""
+    total, cap = bins.bins.shape
+    strips = tile_h // BLOCK_H
+    base = jnp.arange(total, dtype=jnp.int32) * cap
+    return FaceLists(
+        ids=bins.bins.reshape(-1),
+        base=_per_block(base, tiles_y, tiles_x, strips),
+        count=_per_block(bins.counts, tiles_y, tiles_x, strips),
+        groups=1, id_shift=0,
+    )
+
+
+def csr_lists(bins: binning.CSRBins, tiles_y, tiles_x, tile_h):
+    """Face lists of the CSR engine: each tile's CHUNK-aligned run."""
+    strips = tile_h // BLOCK_H
+    return FaceLists(
+        ids=bins.entry_face,
+        base=_per_block(bins.start_block * binning.CHUNK, tiles_y, tiles_x,
+                        strips),
+        count=_per_block(bins.counts, tiles_y, tiles_x, strips),
+        groups=1, id_shift=0,
+    )
+
+
+def packed_lists(bins: binning.PackedBins, tiles_y, tiles_x, tile_h):
+    """Face lists of the packed engine: one list per 8x16 subtile.
+
+    Strip s of tile t owns iterations ``iter_off .. iter_off +
+    strip_iters`` of the tile's run, truncated to the tile's effective
+    iteration count under overflow; group g of iteration i is entry
+    ``start_block * PACK_CHUNK + GROUPS * i + g``.
+    """
+    strips = tile_h // binning.SUB_H
+    total = tiles_y * tiles_x
+    off = bins.iter_off.reshape(total, strips)
+    n = bins.strip_iters.reshape(total, strips)
+    count = jnp.clip(
+        jnp.minimum(n, bins.n_iters[:, None] - off), 0, None
+    )
+    base = (bins.start_block[:, None] * binning.PACK_CHUNK
+            + binning.GROUPS * off)
+
+    def per_block(v):
+        return v.reshape(tiles_y, tiles_x, strips).transpose(0, 2, 1).reshape(
+            tiles_y * strips, tiles_x
+        ).astype(jnp.int32)
+
+    return FaceLists(
+        ids=bins.entries, base=per_block(base), count=per_block(count),
+        groups=binning.GROUPS, id_shift=3,
+    )
+
+
+def pack_face_table(geo, att):
+    """[F + 1, GEO_USED + 3C] plane rows with the sentinel face last.
+
+    ``table[:F, :17]`` is geo's used columns, ``table[:F, 17:]`` is att.
+    The sentinel row (face id F, every list's filler) has edge c0 = -1 with
+    zero slopes, so it covers nothing, and a finite denominator.
+    """
+    table = jnp.concatenate([geo[:, :GEO_USED], att], axis=1)
+    width = table.shape[1]
+    sentinel = jnp.zeros((1, width), jnp.float32)
+    sentinel = sentinel.at[0, 4].set(-1.0).at[0, 7].set(-1.0)
+    sentinel = sentinel.at[0, 10].set(-1.0)
+    sentinel = sentinel.at[0, 16].set(1.0)  # den c0 = 1: finite reciprocal
+    return jnp.concatenate([table, sentinel], axis=0)
+
+
+def _shade(cf, xg, yg, carry, face, channels):
+    """One face over a block: z test, coverage, perspective-correct attrs.
+
+    ``cf(k)`` returns plane coefficient k of the face (a scalar or a row
+    that broadcasts over the block). Shared verbatim by the kernel and the
+    plain twin so both round the same way.
+    """
+    zbuf, fid, pix = carry
+    dx = xg - cf(0)    # anchored coordinates (see triangle_setup)
+    dy = yg - cf(1)
+    e0 = cf(2) * dx + cf(3) * dy + cf(4)
+    e1 = cf(5) * dx + cf(6) * dy + cf(7)
+    e2 = cf(8) * dx + cf(9) * dy + cf(10)
+    inside = jnp.minimum(jnp.minimum(e0, e1), e2) >= 0.0
+    zv = cf(11) * dx + cf(12) * dy + cf(13)
+    mask = inside & (zv < zbuf) & (zv >= -1.0) & (zv <= 1.0)
+    recip = 1.0 / (cf(14) * dx + cf(15) * dy + cf(16))
+    pix = tuple(
+        jnp.where(
+            mask,
+            (cf(GEO_USED + 3 * c) * dx + cf(GEO_USED + 3 * c + 1) * dy
+             + cf(GEO_USED + 3 * c + 2)) * recip,
+            pix[c],
         )
-        zbuf = jnp.where(mask, zv, zbuf)
-        fid = jnp.where(mask, face_id, fid)
-        return zbuf, fid, new_pix
+        for c in range(channels)
+    )
+    return jnp.where(mask, zv, zbuf), jnp.where(mask, face, fid), pix
+
+
+def _scan_kernel(base_ref, count_ref, ids_ref, table_ref, bg_ref,
+                 pix_ref, fid_ref, z_ref, *, channels, groups, id_shift,
+                 block_h, block_w):
+    i = pl.program_id(0)
+    j = pl.program_id(1)
+    base = base_ref[i, j]
+    count = count_ref[i, j]
+    row = jax.lax.broadcasted_iota(jnp.int32, (block_h, block_w), 0)
+    col = jax.lax.broadcasted_iota(jnp.int32, (block_h, block_w), 1)
+    xg = (j * block_w + col).astype(jnp.float32) + 0.5
+    yg = (i * block_h + row).astype(jnp.float32) + 0.5
+    grp = jax.lax.broadcasted_iota(jnp.int32, (block_w,), 0) // (
+        block_w // groups
+    )
+
+    def body(k, carry):
+        if groups == 1:
+            # One list per block: the face id and its coefficients are
+            # scalars broadcast over the block.
+            face = ids_ref[base + k]
+            if id_shift:
+                face = face >> id_shift
+            coef = lambda c: table_ref[face, c]
+            return _shade(coef, xg, yg, carry, face, channels)
+        face = ids_ref[base + k * groups + grp]          # [block_w]
+        if id_shift:
+            face = face >> id_shift
+        coef = lambda c: table_ref[face, c][None, :]
+        return _shade(coef, xg, yg, carry, face[None, :], channels)
 
     init = (
-        jnp.full((tile_h, tile_w), BIG_Z, jnp.float32),
-        jnp.full((tile_h, tile_w), -1, jnp.int32),
+        jnp.full((block_h, block_w), BIG_Z, jnp.float32),
+        jnp.full((block_h, block_w), -1, jnp.int32),
         tuple(bg_ref[c] for c in range(channels)),
     )
     zbuf, fid, pix = jax.lax.fori_loop(0, count, body, init)
-
-    z_ref[:] = zbuf
-    fid_ref[:] = fid
+    z_ref[...] = zbuf
+    fid_ref[...] = fid
     for c in range(channels):
         pix_ref[c] = pix[c]
 
 
-def pack_face_table(geo, att):
-    """Pack per-face geometry and attribute planes into one VMEM table.
-
-    Returns [Fp, GEO_USED + 3C] f32 with one sentinel row appended (index
-    F — the bin fill value; covers nothing, finite denominator) and rows
-    padded to a multiple of 8 for sublane alignment. ``table[:F, :17]``
-    round-trips geo's used columns; ``table[:F, 17:]`` is att.
-    """
-    num_faces = geo.shape[0]
-    table = jnp.concatenate([geo[:, :GEO_USED], att], axis=1)
-    width = table.shape[1]
-    sentinel = jnp.zeros((1, width), jnp.float32)
-    # Edge c0 values (offsets 4, 7, 10) = -1: nothing is inside.
-    sentinel = sentinel.at[0, 4].set(-1.0).at[0, 7].set(-1.0)
-    sentinel = sentinel.at[0, 10].set(-1.0)
-    sentinel = sentinel.at[0, 16].set(1.0)  # den c0 = 1: finite reciprocal
-    rows_padded = -(-(num_faces + 1) // 8) * 8
-    pad = jnp.broadcast_to(sentinel, (rows_padded - num_faces, width))
-    return jnp.concatenate([table, pad], axis=0)
+def _check_shapes(lists, table, background_chw):
+    channels, hp, wp = background_chw.shape
+    ni, nj = lists.base.shape
+    if hp != ni * BLOCK_H or wp % nj:
+        raise ValueError(
+            f"image {hp}x{wp} does not split into {ni}x{nj} blocks of "
+            f"{BLOCK_H} rows"
+        )
+    block_w = wp // nj
+    if block_w & (block_w - 1) or block_w % lists.groups:
+        raise ValueError(f"tile width {block_w} must be a power of two")
+    if table.shape[1] != GEO_USED + 3 * channels:
+        raise ValueError("face table width does not match the channels")
+    return channels, hp, wp, ni, nj, block_w
 
 
-def raster_forward(
-    table, bins, counts, background_chw,
-    *, tile_h: int, tile_w: int, interpret: bool | None = None,
-):
-    """Run the forward kernel over all tiles.
+def raster_forward(lists: FaceLists, table, background_chw):
+    """Scan-convert every block's face list with the Triton kernel.
 
     Args:
-        table: [Fp, GEO_USED + 3C] f32 packed face table (pack_face_table);
-            stays VMEM-resident across the whole grid.
-        bins: [T, cap] int32 face ids per tile (F = sentinel for empty
-            slots); streamed to SMEM one tile row per grid step.
-        counts: [T] int32.
-        background_chw: [C, Hp, Wp] f32, already padded to tile multiples.
+        lists: per-block face lists (``dense_lists`` / ``csr_lists`` /
+            ``packed_lists``).
+        table: [F + 1, GEO_USED + 3C] f32 from :func:`pack_face_table`.
+        background_chw: [C, Hp, Wp] f32, padded to tile multiples.
     Returns:
         pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32, zbuf [Hp, Wp] f32.
     """
-    channels, hp, wp = background_chw.shape
-    total, cap = bins.shape
-    tiles_y, tiles_x = hp // tile_h, wp // tile_w
-    assert tiles_y * tiles_x == total
-    assert table.shape[1] == GEO_USED + 3 * channels
-    if interpret is None:
-        interpret = cfg.use_interpret()
-
+    channels, hp, wp, ni, nj, block_w = _check_shapes(
+        lists, table, background_chw
+    )
     kernel = functools.partial(
-        _fwd_kernel,
-        channels=channels,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        tiles_x=tiles_x,
+        _scan_kernel, channels=channels, groups=lists.groups,
+        id_shift=lists.id_shift, block_h=BLOCK_H, block_w=block_w,
     )
-
-    img_map = lambda t: (0, t // tiles_x, t % tiles_x)
-    flat_map = lambda t: (t // tiles_x, t % tiles_x)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # counts: full [T] array in SMEM
-        grid=(total,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, cap), lambda t, c: (t, 0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                table.shape, lambda t, c: (0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (channels, tile_h, tile_w),
-                lambda t, c: img_map(t),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (channels, tile_h, tile_w),
-                lambda t, c: img_map(t),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (tile_h, tile_w), lambda t, c: flat_map(t),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (tile_h, tile_w), lambda t, c: flat_map(t),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-    )
+    img3 = pl.BlockSpec((channels, BLOCK_H, block_w), lambda i, j: (0, i, j))
+    img2 = pl.BlockSpec((BLOCK_H, block_w), lambda i, j: (i, j))
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((channels, hp, wp), jnp.float32),
-            jax.ShapeDtypeStruct((hp, wp), jnp.int32),
-            jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-        ),
-        interpret=interpret,
-    )(counts, bins[:, None, :], table, background_chw)
-
-
-def _fwd_csr_kernel(
-    meta_ref, ids_ref, table_ref, bg_ref,
-    pix_ref, fid_ref, z_ref,
-    *, channels: int, tile_h: int, tile_w: int, tiles_x: int, total: int,
-):
-    t = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        z_ref[:] = jnp.full((tile_h, tile_w), BIG_Z, jnp.float32)
-        fid_ref[:] = jnp.full((tile_h, tile_w), -1, jnp.int32)
-        for c in range(channels):
-            pix_ref[c] = bg_ref[c]
-
-    count = meta_ref[total + t]
-    base = j * CHUNK
-
-    @pl.when(base < count)
-    def _():
-        ty = t // tiles_x
-        tx = t % tiles_x
-        col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
-        row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
-        xg = (tx * tile_w + col).astype(jnp.float32) + 0.5
-        yg = (ty * tile_h + row).astype(jnp.float32) + 0.5
-
-        def body(i, carry):
-            zbuf, fid, pix = carry
-            face_id = ids_ref[0, 0, i]
-            g = table_ref[i, :]
-            dx = xg - g[0]
-            dy = yg - g[1]
-            e0 = g[2] * dx + g[3] * dy + g[4]
-            e1 = g[5] * dx + g[6] * dy + g[7]
-            e2 = g[8] * dx + g[9] * dy + g[10]
-            inside = jnp.minimum(jnp.minimum(e0, e1), e2) >= 0.0
-            zv = g[11] * dx + g[12] * dy + g[13]
-            mask = inside & (zv < zbuf) & (zv >= -1.0) & (zv <= 1.0)
-            den = g[14] * dx + g[15] * dy + g[16]
-            recip = 1.0 / den
-            new_pix = tuple(
-                jnp.where(
-                    mask,
-                    (
-                        g[GEO_USED + 3 * c] * dx
-                        + g[GEO_USED + 3 * c + 1] * dy
-                        + g[GEO_USED + 3 * c + 2]
-                    ) * recip,
-                    pix[c],
-                )
-                for c in range(channels)
-            )
-            zbuf = jnp.where(mask, zv, zbuf)
-            fid = jnp.where(mask, face_id, fid)
-            return zbuf, fid, new_pix
-
-        init = (z_ref[:], fid_ref[:], tuple(pix_ref[c] for c in range(channels)))
-        n = jnp.minimum(count - base, CHUNK)
-        zbuf, fid, pix = jax.lax.fori_loop(0, n, body, init)
-        z_ref[:] = zbuf
-        fid_ref[:] = fid
-        for c in range(channels):
-            pix_ref[c] = pix[c]
-
-
-def raster_forward_csr(
-    binned_table, entry_face, start_block, counts, background_chw,
-    *, tile_h: int, tile_w: int, max_chunks: int,
-    interpret: bool | None = None,
-):
-    """Streaming forward: per-tile CHUNK-row blocks of a CSR face layout.
-
-    Unlike :func:`raster_forward` the face table is NOT VMEM-resident;
-    each grid step DMAs one CHUNK-row slice of the pre-gathered per-tile
-    face rows (``binned_table[csr.entry_face]`` at the XLA level), so
-    triangle count is bounded by HBM, not VMEM. Chunks past a tile's bin
-    count are skipped.
-
-    Args:
-        binned_table: [n_pad, GEO_USED + 3C] f32 rows in CSR order.
-        entry_face: [n_pad] int32 face id per row (sentinel F on padding).
-        start_block: [T] int32 first CHUNK-block of each tile.
-        counts: [T] int32.
-        background_chw: [C, Hp, Wp] f32 padded to tile multiples.
-        max_chunks: static bound on ceil(count / CHUNK) (= cap // CHUNK).
-    """
-    channels, hp, wp = background_chw.shape
-    total = start_block.shape[0]
-    n_pad, width_cols = binned_table.shape
-    n_blocks = n_pad // CHUNK
-    tiles_y, tiles_x = hp // tile_h, wp // tile_w
-    assert tiles_y * tiles_x == total
-    if interpret is None:
-        interpret = cfg.use_interpret()
-
-    kernel = functools.partial(
-        _fwd_csr_kernel,
-        channels=channels, tile_h=tile_h, tile_w=tile_w,
-        tiles_x=tiles_x, total=total,
-    )
-    meta = jnp.concatenate([start_block, counts]).astype(jnp.int32)
-    ids3 = entry_face.reshape(n_blocks, 1, CHUNK)
-
-    def row_map(t, j, m):
-        return (jnp.minimum(m[t] + j, n_blocks - 1), 0)
-
-    def row_map3(t, j, m):
-        return (jnp.minimum(m[t] + j, n_blocks - 1), 0, 0)
-
-    img_map = lambda t, j, m: (0, t // tiles_x, t % tiles_x)
-    flat_map = lambda t, j, m: (t // tiles_x, t % tiles_x)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(total, max_chunks),
+        grid=(ni, nj),
         in_specs=[
-            pl.BlockSpec((1, 1, CHUNK), row_map3, memory_space=pltpu.SMEM),
-            pl.BlockSpec((CHUNK, width_cols), row_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((channels, tile_h, tile_w), img_map,
-                         memory_space=pltpu.VMEM),
+            pl.no_block_spec, pl.no_block_spec, pl.no_block_spec,
+            pl.no_block_spec, img3,
         ],
-        out_specs=(
-            pl.BlockSpec((channels, tile_h, tile_w), img_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, tile_w), flat_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, tile_w), flat_map,
-                         memory_space=pltpu.VMEM),
-        ),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
+        out_specs=(img3, img2, img2),
         out_shape=(
             jax.ShapeDtypeStruct((channels, hp, wp), jnp.float32),
             jax.ShapeDtypeStruct((hp, wp), jnp.int32),
             jax.ShapeDtypeStruct((hp, wp), jnp.float32),
         ),
-        interpret=interpret,
-    )(meta, ids3, binned_table, background_chw)
-
-
-# ---------------------------------------------------------------------------
-# v2: lane-packed subtile kernel (round 2).
-#
-# VERDICT round-1 weak #1: the v1 kernels evaluate every binned face over a
-# full 64x128 tile, so a typical 10k-mesh triangle (covering ~2% of a tile)
-# wastes ~50x of the VPU. Here a kernel iteration processes one 8-row strip
-# with EIGHT different faces at once — one per 16-lane group — against the
-# subtiles their bboxes actually overlap (``binning.bin_faces_packed``).
-# The per-iteration face coefficients arrive as 8 pre-gathered table rows
-# (XLA row gather, ~0.6 ns/row measured) and are spread across lane groups
-# by a one-hot MXU matmul (HIGHEST precision: the spread must be exact —
-# default bf16 rounding of coefficients flips edge-sign tests).
-#
-# The grid is FLAT over entry chunks (no (tile, max_chunks) skip steps): a
-# scalar-prefetched chunk->tile map drives the output block index maps, so
-# grid length == occupancy and consecutive chunks of one tile keep their
-# blocks resident.
-# ---------------------------------------------------------------------------
-
-from dirt_tpu.ops.binning import GROUPS, PACK_CHUNK, PACK_ITERS, SUB_H, SUB_W
-
-COL_ID = GEO_USED          # float face id (exact for F < 2^24)
-COL_STRIP = GEO_USED + 1   # float strip index, injected post-gather
-COL_ATT = GEO_USED + 2     # 3 columns per channel
-
-
-def packed_table_width(channels: int) -> int:
-    width = COL_ATT + 3 * channels
-    return -(-width // 8) * 8
-
-
-def pack_face_table_v2(geo, att):
-    """[F + 1, W] face table for the packed kernel (sentinel row last).
-
-    Layout per row: geo[0:17] | float(face id) | strip placeholder |
-    attribute planes [3C] | zero pad to a multiple of 8 lanes.
-    """
-    num_faces = geo.shape[0]
-    channels3 = att.shape[1]
-    width = packed_table_width(channels3 // 3)
-    ids = jnp.arange(num_faces, dtype=jnp.float32)[:, None]
-    zeros = jnp.zeros((num_faces, 1), jnp.float32)
-    body = jnp.concatenate([geo[:, :GEO_USED], ids, zeros, att], axis=1)
-    body = jnp.pad(body, ((0, 0), (0, width - body.shape[1])))
-    sentinel = jnp.zeros((1, width), jnp.float32)
-    sentinel = sentinel.at[0, 4].set(-1.0).at[0, 7].set(-1.0)
-    sentinel = sentinel.at[0, 10].set(-1.0)
-    sentinel = sentinel.at[0, 16].set(1.0)
-    sentinel = sentinel.at[0, COL_ID].set(float(num_faces))
-    return jnp.concatenate([body, sentinel], axis=0)
-
-
-def flat_subtile_swap(x):
-    """Involutive image <-> flat-subtile layout permutation (XLA level).
-
-    The packed kernel assigns each SUBLANE a different face evaluated over
-    its own 8x16 subtile flattened into the 128 lanes:
-    ``flat[8*S + k, 128*tx + 16*r + c] == image[8*S + r, 128*tx + 16*k + c]``
-    (k = lane group, r = row within strip, c = column within group). That
-    makes per-face coefficients pure [8, 1] column slices of the gathered
-    rows — no transpose, no one-hot spread matmul (the spread matmul cost
-    ~230 serialized ns PER ITERATION; an XLA-side spread costs a 4.3 ms
-    repeat pass). Swapping r and k is its own inverse, so this one
-    function converts the background in and the rendered buffers out, as
-    a cheap minor-dim-preserving 6D transpose.
-    """
-    *lead, hp, wp = x.shape
-    y = x.reshape(*lead, hp // SUB_H, SUB_H, wp // 128, 8, SUB_W)
-    y = jnp.swapaxes(y, -4, -2)
-    return y.reshape(*lead, hp, wp)
-
-
-def _fwd_packed_kernel(
-    meta_ref, rows_ref, bg_ref,
-    pix_ref, fid_ref, z_ref,
-    *, channels: int, tile_h: int, tile_w: int, tiles_x: int,
-    total: int, budget_chunks: int, width: int,
-):
-    strips = tile_h // SUB_H
-    c = pl.program_id(0)
-    t = meta_ref[c]                          # chunk -> tile
-    sb = meta_ref[budget_chunks + t]         # tile -> first chunk
-    n_it = meta_ref[budget_chunks + total + t]
-    off_base = budget_chunks + 2 * total
-    cnt_base = off_base + total * strips
-    j = c - sb
-
-    @pl.when(j == 0)
-    def _():
-        z_ref[:] = jnp.full((tile_h, tile_w), BIG_Z, jnp.float32)
-        fid_ref[:] = jnp.full((tile_h, tile_w), -1, jnp.int32)
-        for ch in range(channels):
-            pix_ref[ch] = bg_ref[ch]
-
-    @pl.when(j * PACK_ITERS < n_it)
-    def _():
-        tx = t % tiles_x
-        ty = t // tiles_x
-        # Flat-subtile pixel coordinates (see flat_subtile_swap): sublane
-        # k owns lane group k's 8x16 subtile; lane l = 16*r + c.
-        subl = jax.lax.broadcasted_iota(jnp.int32, (SUB_H, tile_w), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (SUB_H, tile_w), 1)
-        px = lane % SUB_W
-        py = lane // SUB_W
-        xgf = (
-            tx * tile_w + subl * SUB_W + px
-        ).astype(jnp.float32) + 0.5
-        chunk_lo = j * PACK_ITERS
-        chunk_hi = jnp.minimum(chunk_lo + PACK_ITERS, n_it)
-
-        # Strip-major: output slices are STATIC (dynamic sublane stores
-        # cost hundreds of cycles each in Mosaic), and z/fid/pixel state
-        # rides in REGISTERS across the strip's iterations. A strip's
-        # iterations are contiguous (binning invariant), so the chunk
-        # processes, per strip, the overlap of [strip run) x [chunk).
-        for s in range(strips):
-            lo = jnp.maximum(meta_ref[off_base + t * strips + s], chunk_lo)
-            hi = jnp.minimum(
-                meta_ref[off_base + t * strips + s]
-                + meta_ref[cnt_base + t * strips + s],
-                chunk_hi,
-            )
-
-            @pl.when(lo < hi)
-            def _(s=s, lo=lo, hi=hi):
-                rs = slice(s * SUB_H, (s + 1) * SUB_H)
-                ygf = (ty * tile_h + s * SUB_H + py).astype(
-                    jnp.float32
-                ) + 0.5
-
-                def eval8(m8, carry, ok):
-                    # One iteration's 8 faces vs this strip row; ``ok``
-                    # masks speculative tail evaluations whose rows may
-                    # belong to the next strip.
-                    zb, fb, pix = carry
-
-                    def cf(k):
-                        # [8, 1] column: face coefficient per sublane,
-                        # lane-broadcast by the consuming arithmetic.
-                        return m8[:, k:k + 1]
-
-                    dx = xgf - cf(0)
-                    dy = ygf - cf(1)
-                    e0 = cf(2) * dx + cf(3) * dy + cf(4)
-                    e1 = cf(5) * dx + cf(6) * dy + cf(7)
-                    e2 = cf(8) * dx + cf(9) * dy + cf(10)
-                    inside = jnp.minimum(jnp.minimum(e0, e1), e2) >= 0.0
-                    zv = cf(11) * dx + cf(12) * dy + cf(13)
-                    mask = (
-                        inside & (zv < zb) & (zv >= -1.0) & (zv <= 1.0)
-                        & ok
-                    )
-                    den = cf(14) * dx + cf(15) * dy + cf(16)
-                    recip = 1.0 / den
-                    fidv = cf(COL_ID).astype(jnp.int32)
-                    new_pix = tuple(
-                        jnp.where(
-                            mask,
-                            (
-                                cf(COL_ATT + 3 * ch) * dx
-                                + cf(COL_ATT + 3 * ch + 1) * dy
-                                + cf(COL_ATT + 3 * ch + 2)
-                            ) * recip,
-                            pix[ch],
-                        )
-                        for ch in range(channels)
-                    )
-                    return (
-                        jnp.where(mask, zv, zb),
-                        jnp.where(mask, fidv, fb),
-                        new_pix,
-                    )
-
-                # Two iterations per loop body sharing ONE dynamic-offset
-                # VMEM read: the [8, W] read at a dynamic sublane offset
-                # costs ~40 ns — a third of the whole iteration — so
-                # pairing reads [16, W] once and evaluates both halves
-                # back to back (same order => identical z-tie semantics).
-                ok_t = jnp.bool_(True)
-
-                def body2(p, carry):
-                    g0 = lo + 2 * p
-                    row0 = pl.multiple_of(
-                        (g0 - j * PACK_ITERS) * GROUPS, 2 * GROUPS
-                    )
-                    m16 = rows_ref[pl.ds(row0, 2 * GROUPS), :]  # [16, W]
-                    carry = eval8(m16[:GROUPS], carry, ok_t)
-                    return eval8(m16[GROUPS:], carry, ok_t)
-
-                init = (
-                    z_ref[rs, :],
-                    fid_ref[rs, :],
-                    tuple(pix_ref[ch, rs, :] for ch in range(channels)),
-                )
-                npairs = (hi - lo) // 2
-                carry = jax.lax.fori_loop(0, npairs, body2, init)
-                # Odd tail: evaluated speculatively (the read stays inside
-                # the chunk block), masked by ``ok``.
-                g_t = lo + 2 * npairs
-                # Clamp: with an even count g_t can be one past the chunk.
-                row_t = pl.multiple_of(
-                    jnp.minimum(
-                        (g_t - j * PACK_ITERS) * GROUPS,
-                        PACK_CHUNK - GROUPS,
-                    ),
-                    GROUPS,
-                )
-                m8_t = rows_ref[pl.ds(row_t, GROUPS), :]
-                zb, fb, pix = eval8(m8_t, carry, g_t < hi)
-                z_ref[rs, :] = zb
-                fid_ref[rs, :] = fb
-                for ch in range(channels):
-                    pix_ref[ch, rs, :] = pix[ch]
-
-
-def raster_forward_packed(
-    table2, bins, background_chw,
-    *, tile_h: int, tile_w: int, interpret: bool | None = None,
-    rows=None,
-):
-    """Forward pass over packed subtile bins (``bin_faces_packed``).
-
-    Args:
-        table2: [F + 1, W] from :func:`pack_face_table_v2`.
-        bins: PackedBins.
-        background_chw: [C, Hp, Wp] f32 padded to tile multiples.
-        rows: optional precomputed ``table2[bins.entries // 8]`` (the
-            caller may gather once and also hand the rows to the
-            backward via ``bins.rows``).
-    Returns:
-        pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32, zbuf [Hp, Wp] f32.
-    """
-    channels, hp, wp = background_chw.shape
-    tiles_y, tiles_x = hp // tile_h, wp // tile_w
-    total = tiles_y * tiles_x
-    width = table2.shape[1]
-    budget_rows = bins.entries.shape[0]
-    budget_chunks = budget_rows // PACK_CHUNK
-    if interpret is None:
-        interpret = cfg.use_interpret()
-
-    if rows is None:
-        with jax.named_scope("dirt_packed_gather"):
-            rows = table2[bins.entries // 8]               # [rows, W]
-    (bg_flat,) = flat_subtile_swap_pallas([background_chw])
-    meta = jnp.concatenate(
-        [bins.chunk_tile, bins.start_block, bins.n_iters,
-         bins.iter_off, bins.strip_iters]
-    ).astype(jnp.int32)
-
-    kernel = functools.partial(
-        _fwd_packed_kernel,
-        channels=channels, tile_h=tile_h, tile_w=tile_w,
-        tiles_x=tiles_x, total=total, budget_chunks=budget_chunks,
-        width=width,
-    )
-    img_map = lambda c, m: (0, m[c] // tiles_x, m[c] % tiles_x)
-    flat_map = lambda c, m: (m[c] // tiles_x, m[c] % tiles_x)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(budget_chunks,),
-        in_specs=[
-            pl.BlockSpec((PACK_CHUNK, width),
-                         lambda c, m: (c, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((channels, tile_h, tile_w), img_map,
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((channels, tile_h, tile_w), img_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, tile_w), flat_map,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, tile_w), flat_map,
-                         memory_space=pltpu.VMEM),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
         ),
+        interpret=cfg.use_interpret(),
+        name="dirt_scan",
+    )(lists.base, lists.count, lists.ids, table, background_chw)
+
+
+def raster_forward_xla(lists: FaceLists, table, background_chw):
+    """Plain-XLA twin of :func:`raster_forward` (same lists, same result).
+
+    A ``fori_loop`` over list slots: step k evaluates slot k of every
+    block's list(s) over all pixels at once, with the per-pixel state kept
+    in image layout viewed as [blocks_y, BLOCK_H, blocks_x, groups,
+    columns per group].
+    """
+    channels, hp, wp, ni, nj, block_w = _check_shapes(
+        lists, table, background_chw
     )
-    pix_f, fid_f, z_f = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((channels, hp, wp), jnp.float32),
-            jax.ShapeDtypeStruct((hp, wp), jnp.int32),
-            jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-        ),
-        interpret=interpret,
-    )(meta, rows, bg_flat)
-    return tuple(flat_subtile_swap_pallas([pix_f, fid_f, z_f]))
+    groups = lists.groups
+    sub_w = block_w // groups
+    shape5 = (ni, BLOCK_H, nj, groups, sub_w)
+    yg = (jnp.arange(hp, dtype=jnp.float32) + 0.5).reshape(
+        ni, BLOCK_H, 1, 1, 1
+    )
+    xg = (jnp.arange(wp, dtype=jnp.float32) + 0.5).reshape(
+        1, 1, nj, groups, sub_w
+    )
+    sentinel = table.shape[0] - 1
+    n_ids = lists.ids.shape[0]
+    g_iota = jnp.arange(groups, dtype=jnp.int32)
 
+    def body(k, carry):
+        slot = lists.base[:, :, None] + k * groups + g_iota   # [ni, nj, G]
+        face = lists.ids[jnp.minimum(slot, n_ids - 1)] >> lists.id_shift
+        face = jnp.where((k < lists.count)[:, :, None], face, sentinel)
+        rows = jnp.moveaxis(table[face], -1, 0)           # [W, ni, nj, G]
+        coef = lambda c: rows[c][:, None, :, :, None]
+        return _shade(coef, xg, yg, carry, face[:, None, :, :, None],
+                      channels)
 
-def _butterfly_swap_block(v, lead: int):
-    """Swap (row, lane-group) within each 8x(8x16) strip of a block.
-
-    Three butterfly stages (bit i of the row index exchanges with bit i
-    of the 16-lane-group index where they differ), built from
-    ``pltpu.roll`` + selects: Mosaic rejects the natural reshape/transpose
-    and XLA's 6D-transpose lowering of the same permutation runs at
-    ~40 GB/s (measured 1.6 ms for 60 MB vs 0.38 ms for this kernel).
-    """
-    shape = v.shape
-    rows_ax, lane_ax = len(shape) - 2, len(shape) - 1
-    row = jax.lax.broadcasted_iota(jnp.int32, shape, rows_ax) % SUB_H
-    grp = jax.lax.broadcasted_iota(jnp.int32, shape, lane_ax) // SUB_W
-    n_rows = shape[rows_ax]
-    for i in range(3):
-        bit = 1 << i
-        rb = (row // bit) % 2
-        kb = (grp // bit) % 2
-        need = rb != kb
-        down = pltpu.roll(
-            pltpu.roll(v, n_rows - bit, rows_ax), SUB_W * bit, lane_ax
-        )
-        up = pltpu.roll(
-            pltpu.roll(v, bit, rows_ax), 128 - SUB_W * bit, lane_ax
-        )
-        v = jnp.where(need & (rb == 1), up, jnp.where(need, down, v))
-    return v
-
-
-def flat_subtile_swap_pallas(arrays, interpret: bool | None = None):
-    """Pallas implementation of :func:`flat_subtile_swap` for many arrays.
-
-    One grid pass converts every array ([Hp, Wp] or [K, Hp, Wp], any
-    mix of f32/int32) between image and flat-subtile layout (the
-    permutation is involutive). Arrays are padded to 64-row multiples
-    internally; pass Hp % 8 == 0, Wp % 128 == 0.
-    """
-    if interpret is None:
-        interpret = cfg.use_interpret()
-    arrays = [jnp.asarray(a) for a in arrays]
-    hp, wp = arrays[0].shape[-2:]
-    hp64 = -(-hp // 64) * 64
-    tiles_x = wp // 128
-    grid = ((hp64 // 64) * tiles_x,)
-
-    ins, specs, outs = [], [], []
-    for a in arrays:
-        a3 = a[None] if a.ndim == 2 else a
-        lead = a3.shape[0]
-        if hp64 != hp:
-            a3 = jnp.pad(a3, ((0, 0), (0, hp64 - hp), (0, 0)))
-        ins.append(a3)
-        specs.append(pl.BlockSpec(
-            (lead, 64, 128),
-            lambda c, tx=tiles_x: (0, c // tx, c % tx),
-            memory_space=pltpu.VMEM,
-        ))
-        outs.append(jax.ShapeDtypeStruct(a3.shape, a3.dtype))
-
-    def kernel(*refs):
-        n = len(arrays)
-        for x_ref, o_ref in zip(refs[:n], refs[n:]):
-            o_ref[:] = _butterfly_swap_block(x_ref[:], x_ref.shape[0])
-
-    res = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=specs,
-        out_specs=tuple(specs),
-        out_shape=tuple(outs),
-        interpret=interpret,
-    )(*ins)
-    out = []
-    for a, r in zip(arrays, res):
-        r = r[:, :hp, :]
-        out.append(r[0] if a.ndim == 2 else r)
-    return out
+    init = (
+        jnp.full(shape5, BIG_Z, jnp.float32),
+        jnp.full(shape5, -1, jnp.int32),
+        tuple(background_chw[c].reshape(shape5) for c in range(channels)),
+    )
+    zbuf, fid, pix = jax.lax.fori_loop(
+        0, jnp.max(lists.count), body, init
+    )
+    return (
+        jnp.stack(pix).reshape(channels, hp, wp),
+        fid.reshape(hp, wp),
+        zbuf.reshape(hp, wp),
+    )

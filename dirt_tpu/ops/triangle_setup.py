@@ -1,12 +1,12 @@
 """Differentiable triangle setup: screen transform and plane coefficients.
 
-TPU-first design note (SURVEY.md section 7): the reference's GL pipeline does
+Design note (SURVEY.md section 7): the reference's GL pipeline does
 per-triangle setup in fixed-function hardware. Here setup happens in pure
 JAX, producing *affine plane coefficients* per face — oriented edge
 functions, screen-space depth, the perspective denominator ``sum_k b_k/w_k``
 and per-channel attribute numerators ``sum_k b_k attr_k / w_k`` — so the
-Pallas scan-conversion kernel only ever evaluates planes over pixel tiles
-(pure VPU FMAs, no per-pixel divides except one reciprocal).
+Pallas scan-conversion kernel only ever evaluates planes over pixel blocks
+(FMAs, no per-pixel divides except one reciprocal).
 
 Numerical design: planes are stored in **anchored form**. Each face carries
 its vertex-0 screen position ``(ax, ay)`` and every plane is
@@ -94,12 +94,11 @@ def setup_planes(face_verts_screen, face_attrs):
     num_faces = fv.shape[0]
     channels = fa.shape[-1]
 
-    # Channels-first internals (ROADMAP r2 #1): [F, 3]-shaped corner
-    # arrays put a 3-wide minor dim on the 128-lane axis, and their VJP
-    # made XLA materialize a scalarized column-major relayout (~0.5 ms at
-    # 10k faces). ONE [F, 12] -> [12, F] transpose up front (whose
-    # pullback is one transpose back) turns every subsequent value into a
-    # lane-friendly [F] row vector.
+    # Channels-first internals: [F, 3]-shaped corner arrays would make
+    # every per-corner read (and its VJP) a strided minor-dim access. ONE
+    # [F, 12] -> [12, F] transpose up front (whose pullback is one
+    # transpose back) turns every subsequent value into a contiguous [F]
+    # row vector.
     cols = fv.reshape(num_faces, 12).T                      # [12, F]
     x0, y0, z0, w0 = cols[0], cols[1], cols[2], cols[3]
     x1, y1, z1, w1 = cols[4], cols[5], cols[6], cols[7]
@@ -148,8 +147,8 @@ def setup_planes(face_verts_screen, face_attrs):
 
     # Assemble both tables with ONE stack each: per-column .at[...].set
     # writes (especially strided ones) transpose into strided slice reads
-    # whose VJP costs ~1 ms per call on TPU; a single stack's VJP is a
-    # single unstack of contiguous slices.
+    # in the VJP; a single stack's VJP is a single unstack of contiguous
+    # slices.
     geo_cols = [
         jnp.where(valid, x0, 0.0),            # GEO_AX
         jnp.where(valid, y0, 0.0),            # GEO_AY
@@ -221,9 +220,7 @@ def face_bbox_cols(face_verts_screen, valid, height: int, width: int):
     inclusive pixel indices; empty boxes are encoded with max < min.
     Faces entirely outside z in [-1, 1] are also culled here. Kept as
     separate columns on purpose: a stacked [F, 4] array forces every
-    consumer's ``bbox[:, k]`` through a strided column read that XLA
-    materializes as a SCALARIZED column-major relayout (measured 0.94 ms
-    at 10k faces — more than the raster kernel).
+    consumer's ``bbox[:, k]`` through a strided column read.
     """
     fv = jnp.asarray(face_verts_screen, jnp.float32)
     x, y, z = fv[..., 0], fv[..., 1], fv[..., 2]

@@ -8,7 +8,7 @@ full-image (z, global-face-id, color) partial and the partials composite
 by a minimum-depth reduction with the single-device z-tie rule (lowest
 global face id wins), so the sharded render is pixel-exact vs one device.
 
-Compositing is two ``pmin`` collectives over ICI (z, then id-among-z
+Compositing is two ``pmin`` collectives (z, then id-among-z
 -winners) plus one masked ``psum`` for the winner's colors — O(H*W) bytes
 per chip, no triangle-count-dependent communication.
 
@@ -37,15 +37,14 @@ from jax.sharding import PartitionSpec as P
 from dirt_tpu.ops.raster import RasterConfig, _forward_impl
 from dirt_tpu.ops.raster_bwd import (
     anchor_cotangents,
+    face_rows,
     neighbor_maps,
     pixel_cotangents_core,
+    stack_face_columns,
+    unpack_face_rows,
 )
 from dirt_tpu.ops.raster_fwd import BIG_Z
-from dirt_tpu.ops.triangle_setup import (
-    GEO_WIDTH,
-    screen_from_clip,
-    setup_planes,
-)
+from dirt_tpu.ops.triangle_setup import screen_from_clip, setup_planes
 from dirt_tpu.parallel.sharding import _exchange_halo_rows
 
 _BIG_ID = jnp.int32(2**30)
@@ -64,7 +63,6 @@ def _band_face_rows(geo_all, att_all, fid_e, zbuf_e, pix_e, grad_e,
     WITHOUT anchor cotangents (applied per-face after the psum_scatter).
     """
     height_e, width = fid_e.shape
-    channels = pix_e.shape[-1]
     covered = (fid_e >= 0) & own_mask
     safe_fid = jnp.maximum(fid_e, 0)
     g16cf = jnp.transpose(geo_all[safe_fid], (2, 0, 1))
@@ -80,18 +78,10 @@ def _band_face_rows(geo_all, att_all, fid_e, zbuf_e, pix_e, grad_e,
     d_geo_cols, d_att_cols = pixel_cotangents_core(
         g16cf, covered, fid_e, zbuf_e, pix_cf, grad_cf, nbrs, xg, yg
     )
-
-    seg = safe_fid.reshape(-1)
-    weight = covered.reshape(-1, 1).astype(jnp.float32)
-    d_geo_pix = jnp.stack(d_geo_cols, axis=0).reshape(GEO_WIDTH, -1).T
-    d_att_pix = jnp.stack(d_att_cols, axis=0).reshape(3 * channels, -1).T
-    d_geo = jax.ops.segment_sum(
-        d_geo_pix * weight, seg, num_segments=num_faces_global
+    cot = stack_face_columns(d_geo_cols, d_att_cols, covered)
+    return unpack_face_rows(
+        face_rows(cot, fid_e, covered, num_faces_global)
     )
-    d_att = jax.ops.segment_sum(
-        d_att_pix * weight, seg, num_segments=num_faces_global
-    )
-    return d_geo, d_att
 
 
 def _make_face_shard_op(config: RasterConfig, axis,

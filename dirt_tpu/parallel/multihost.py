@@ -1,22 +1,10 @@
-"""Multi-host (DCN-aware) rendering meshes (SURVEY.md section 7, step 6).
+"""Multi-process start-up for renders that span hosts.
 
-The reference is single-process/single-GPU; this module is the pod-scale
-story. Topology-aware design:
-
-* Image rows shard over the COMBINED ``("dcn", "tiles")`` axis pair,
-  dcn-major: each host owns one contiguous band of rows, subdivided into
-  per-chip slabs over ICI. The backward's 1-row halo ``ppermute``
-  (``parallel.sharding``) then crosses DCN only at band boundaries —
-  exactly one row per host pair per step — while all other halos and the
-  per-band collectives ride ICI.
-* Parameter gradients (vertices/colors/lights) psum over both axes; XLA
-  lowers the ICI part first and crosses DCN once with the band-reduced
-  values (standard hybrid-mesh behavior).
-
-On a single process this degrades gracefully: ``make_render_mesh``
-builds the same two-level mesh from local devices so the code path (and
-the driver's virtual-device dry run) is identical to the real multi-host
-deployment.
+The reference is single-process/single-GPU. A render sharded over the
+cards of one host needs nothing from here: ``parallel.sharding`` builds
+its mesh from ``jax.devices()``. Several processes (one per host or per
+card) first join one JAX runtime with :func:`init_distributed`; the same
+sharded renders then run over ``jax.devices()`` of all processes.
 """
 
 from __future__ import annotations
@@ -24,8 +12,6 @@ from __future__ import annotations
 import os
 
 import jax
-import numpy as np
-from jax.sharding import Mesh
 
 
 def init_distributed(
@@ -37,8 +23,10 @@ def init_distributed(
 
     Returns True if a multi-process runtime was initialized, False when
     running single-process (no-op). Safe to call unconditionally at
-    program start, mirroring ``jax.distributed.initialize`` semantics on
-    TPU pods (where all three values are auto-detected).
+    program start. On GPU hosts nothing detects a cluster, so the
+    coordinator address (``host:port``), the process count and this
+    process's id must all be given, as arguments or as
+    ``DIRT_COORDINATOR`` / ``DIRT_NUM_PROCESSES`` / ``DIRT_PROCESS_ID``.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "DIRT_COORDINATOR"
@@ -57,37 +45,3 @@ def init_distributed(
         process_id=pid if pid >= 0 else None,
     )
     return True
-
-
-def make_render_mesh(
-    tiles_per_host: int | None = None,
-    data: int = 1,
-    devices=None,
-) -> Mesh:
-    """A ("data", "dcn", "tiles") mesh laid out host-major on the dcn axis.
-
-    Args:
-        tiles_per_host: ICI slab-axis size per host (default: all of a
-            host's devices after the data axis).
-        data: data-parallel axis size (scene batching).
-        devices: override device list (tests use virtual CPU devices).
-    Returns:
-        Mesh with axes ("data", "dcn", "tiles"); the row axis of a
-        sharded render should use ``axis=("dcn", "tiles")`` so row bands
-        are host-contiguous (halos cross DCN once per band boundary).
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    n_hosts = max(jax.process_count(), 1)
-    per_host = len(devices) // n_hosts
-    if tiles_per_host is None:
-        tiles_per_host = per_host // data
-    dcn = len(devices) // (data * tiles_per_host)
-    if data * dcn * tiles_per_host != len(devices):
-        raise ValueError(
-            f"{len(devices)} devices do not factor into data={data} x "
-            f"dcn={dcn} x tiles={tiles_per_host}"
-        )
-    # jax.devices() orders devices host-major already; keep that order so
-    # the dcn axis aligns with host boundaries.
-    arr = np.array(devices).reshape(data, dcn, tiles_per_host)
-    return Mesh(arr, ("data", "dcn", "tiles"))

@@ -1,18 +1,16 @@
-"""Gradient-overlapped collectives: row-chunked backward + per-chunk psum.
+"""Gradient-overlapped collectives: row-banded backward + per-band psum.
 
-SURVEY.md section 5 (distributed comm): on a real pod the parameter-grad
-all-reduce should ride ICI *while* the backward is still crunching pixel
-tiles. shard_map's automatic transpose emits ONE psum after the whole
-backward; this module restructures the slab backward into ``n_chunks``
-row bands, each emitting its own ``psum`` of the partial parameter
-gradients — giving XLA a dependency graph where chunk k's collective can
-overlap chunk k+1's compute. (The reference is single-GPU — no analogue;
-this is the TPU build's own scaling axis, deferred from round 2 as
-ROADMAP #7.)
+SURVEY.md section 5 (distributed comm): the parameter-grad all-reduce
+should run *while* the backward is still computing pixels. shard_map's
+automatic transpose emits ONE psum after the whole backward; this module
+restructures the slab backward into ``n_chunks`` row bands, each emitting
+its own ``psum`` of the partial parameter gradients — giving XLA a
+dependency graph where band k's collective can overlap band k+1's
+compute. (The reference is single-GPU — no analogue.)
 
-The win itself cannot be measured on this machine (one real chip); what
-IS verified here (on the 8-device CPU mesh, `tests/test_overlap.py`) is
-exactness: chunked + overlapped gradients == the unsharded `jax.grad`.
+Verified on a virtual CPU mesh (``tests/test_overlap.py``): banded +
+overlapped gradients == the unsharded ``jax.grad``. Whether the overlap
+pays over NVLink is not measured.
 
 Design notes:
 
@@ -21,13 +19,14 @@ Design notes:
   row band on SLICED arrays — boundary pairs whose two pixels fall in
   different bands (or different slabs) are still each counted exactly
   once, because the neighbor maps are precomputed on the halo-extended
-  slab (`sharding._halo_neighbor_stacks`) and sliced along with the
-  band: the band owning the pair's front pixel sees the back pixel's
-  data in its neighbor stack.
-* Each band's per-face rows reduce to parameter space through the SAME
+  slab (:func:`_halo_neighbor_maps`) and sliced along with the band:
+  the band owning the pair's front pixel sees the back pixel's data in
+  its neighbor maps.
+* Each band's per-face plane cotangents are `lax.psum`'d immediately;
+  the summed rows then reduce to parameter space once, through the SAME
   `jax.vjp` chain as the one-shot path (setup_planes -> screen gather ->
-  vertices), then `lax.psum` immediately. Summing psum'd chunks equals
-  psum'd sums (the one-shot gradient) exactly up to f32 reassociation.
+  vertices). Summing psum'd bands equals psum'd sums (the one-shot
+  gradient) exactly up to f32 reassociation.
 """
 
 from __future__ import annotations
@@ -36,26 +35,36 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from dirt_tpu.ops import binning
-from dirt_tpu.ops.raster import (
-    RasterConfig,
-    _forward_impl,
-    resolve_engine,
-)
+from dirt_tpu.ops.raster import RasterConfig, _forward_impl
 from dirt_tpu.ops.raster_bwd import (
-    GEO_DEN,
-    GEO_EDGE,
     anchor_cotangents,
-    assemble_face_gradients,
+    face_rows,
+    neighbor_maps,
     pixel_cotangents_core,
+    stack_face_columns,
+    unpack_face_rows,
 )
-from dirt_tpu.ops.raster_fwd import BIG_Z
-from dirt_tpu.ops.triangle_setup import (
-    GEO_WIDTH,
-    screen_from_clip,
-    setup_planes,
-)
-from dirt_tpu.parallel.sharding import _halo_neighbor_stacks
+from dirt_tpu.ops.triangle_setup import screen_from_clip, setup_planes
+from dirt_tpu.parallel.sharding import _exchange_halo_rows
+
+
+def _halo_neighbor_maps(fid, zbuf, pixels, grad_pixels, axis):
+    """:func:`neighbor_maps` of this slab with its halo rows spliced in.
+
+    The maps are computed on arrays extended by one mesh-neighbor row on
+    each side, then cut back to the slab's own rows: the vertical
+    neighbor data of the slab's first and last rows comes from the
+    adjacent devices, so every cross-slab boundary pair is evaluated
+    (exactly once) by the device owning the pair's front pixel.
+    """
+    fid_e, zbuf_e, pixels_e, grad_e = _exchange_halo_rows(
+        fid, zbuf, pixels, grad_pixels, axis
+    )
+    nbrs = neighbor_maps(
+        fid_e, zbuf_e, jnp.transpose(pixels_e, (2, 0, 1)),
+        jnp.transpose(grad_e, (2, 0, 1)),
+    )
+    return [tuple(m[1:-1] for m in n) for n in nbrs]
 
 
 def _band_face_rows(geo, att, fid_b, zbuf_b, pix_b, grad_b, nbrs_b, y0,
@@ -63,13 +72,12 @@ def _band_face_rows(geo, att, fid_b, zbuf_b, pix_b, grad_b, nbrs_b, y0,
     """Per-face cotangent rows for one row band (pure-JAX engine).
 
     Mirrors ``raster_bwd.backward_jax`` but on row-sliced arrays with
-    externally supplied neighbor stacks and a global row offset ``y0``
+    externally supplied neighbor maps and a global row offset ``y0``
     (band rows are slab-local ``y0 .. y0 + band_h``).
-    Returns (d_geo [F, GEO_WIDTH], d_att [F, 3C]) WITHOUT anchor
+    Returns (d_geo [F, 24], d_att [F, 3C]) WITHOUT anchor
     cotangents (derived once after summing bands).
     """
     band_h, width = fid_b.shape
-    channels = pix_b.shape[-1]
     covered = fid_b >= 0
     safe_fid = jnp.maximum(fid_b, 0)
     g16cf = jnp.transpose(geo[safe_fid], (2, 0, 1))
@@ -81,26 +89,11 @@ def _band_face_rows(geo, att, fid_b, zbuf_b, pix_b, grad_b, nbrs_b, y0,
     xg = jnp.broadcast_to(col[None, :], (band_h, width))
     yg = jnp.broadcast_to(row[:, None], (band_h, width))
 
-    nbrs = [
-        (nbrs_b[0][i], nbrs_b[1][i], nbrs_b[2][i]) for i in range(4)
-    ]
     d_geo_cols, d_att_cols = pixel_cotangents_core(
-        g16cf, covered, fid_b, zbuf_b, pix_cf, grad_cf, nbrs, xg, yg
+        g16cf, covered, fid_b, zbuf_b, pix_cf, grad_cf, nbrs_b, xg, yg
     )
-
-    seg = safe_fid.reshape(-1)
-    weight = covered.reshape(-1, 1).astype(jnp.float32)
-    d_geo_pix = jnp.stack(d_geo_cols, axis=0).reshape(GEO_WIDTH, -1).T
-    d_att_pix = jnp.stack(d_att_cols, axis=0).reshape(
-        3 * channels, -1
-    ).T
-    d_geo = jax.ops.segment_sum(
-        d_geo_pix * weight, seg, num_segments=num_faces
-    )
-    d_att = jax.ops.segment_sum(
-        d_att_pix * weight, seg, num_segments=num_faces
-    )
-    return d_geo, d_att
+    cot = stack_face_columns(d_geo_cols, d_att_cols, covered)
+    return unpack_face_rows(face_rows(cot, fid_b, covered, num_faces))
 
 
 def overlapped_loss_and_grads(
@@ -108,7 +101,7 @@ def overlapped_loss_and_grads(
     axis: str = "tiles", config: RasterConfig | None = None,
     n_chunks: int = 2,
 ):
-    """L2 render loss + gradients with row-chunked, per-chunk-psum backward.
+    """L2 render loss + gradients through :func:`rasterise_overlapped`.
 
     Args:
         background / target: [H, W, C] (sharded over rows by ``axis``).
@@ -117,119 +110,25 @@ def overlapped_loss_and_grads(
         mesh: Mesh containing ``axis``; n_chunks: row bands per slab.
     Returns:
         (loss [], d_vertices [V, 4], d_colors [V, C], d_background
-        [H, W, C]) — loss/parameter grads replicated, d_background
-        sharded. Gradients equal ``jax.grad`` of
+        [H, W, C]). Gradients equal ``jax.grad`` of
         ``sum((rasterise(...) - target)**2)`` with ``clip=False``.
     """
-    height, width, _ = background.shape
-    n = mesh.shape[axis]
-    config = (config or RasterConfig()).concrete(height // n)
-    if height % (n * config.tile_h) != 0:
-        raise ValueError("height must divide devices * tile_h")
-    faces = jnp.asarray(faces, jnp.int32)
-    num_faces = faces.shape[0]
-    slab_h = height // n
-    if slab_h % n_chunks != 0:
-        raise ValueError("slab height must divide n_chunks")
-    band_h = slab_h // n_chunks
+    target = jnp.asarray(target, jnp.float32)
 
-    def per_device(bg_slab, target_slab, verts, colors):
-        idx = jax.lax.axis_index(axis)
-        row0 = (idx * slab_h).astype(jnp.float32)
-
-        def to_planes(verts, colors):
-            vs = screen_from_clip(verts, height, width)
-            fv = vs[faces] - jnp.array([0.0, 1.0, 0.0, 0.0]) * row0
-            fa = colors[faces]
-            geo, att, _ = setup_planes(fv, fa)
-            return geo, att
-
-        def to_faces(verts, colors):
-            vs = screen_from_clip(verts, height, width)
-            fv = vs[faces] - jnp.array([0.0, 1.0, 0.0, 0.0]) * row0
-            return fv, colors[faces]
-
-        fv, fa = to_faces(verts, colors)
-        (geo, att), vjp_planes = jax.vjp(to_planes, verts, colors)
-        pixels, fid, zbuf, _ = _forward_impl(fv, fa, bg_slab, config)
-
-        diff = pixels - target_slab
-        loss = jax.lax.psum(jnp.sum(diff * diff), axis)
-        grad_pixels = 2.0 * diff
-
-        wp = -(-width // config.tile_w) * config.tile_w
-        nfid4, nz4, sval4 = _halo_neighbor_stacks(
-            fid, zbuf, pixels, grad_pixels, axis, slab_h, wp
+    def loss(bg, verts, cols):
+        img = rasterise_overlapped(
+            bg, verts, cols, faces, mesh, axis, config, n_chunks
         )
-        nfid4, nz4, sval4 = (
-            nfid4[:, :, :width], nz4[:, :, :width], sval4[:, :, :width]
-        )
+        return jnp.sum((img - target) ** 2)
 
-        d_geo_total = jnp.zeros((num_faces, GEO_WIDTH), jnp.float32)
-        d_att_total = jnp.zeros_like(att)
-        covered = fid >= 0
-        d_bg = jnp.where(covered[..., None], 0.0, grad_pixels)
-
-        d_verts = jnp.zeros_like(verts)
-        d_colors = jnp.zeros_like(colors)
-        for k in range(n_chunks):
-            rows = slice(k * band_h, (k + 1) * band_h)
-            nbrs_b = (
-                nfid4[:, rows], nz4[:, rows], sval4[:, rows]
-            )
-            d_geo_k, d_att_k = _band_face_rows(
-                geo, att, fid[rows], zbuf[rows], pixels[rows],
-                grad_pixels[rows], nbrs_b, float(k * band_h), num_faces,
-            )
-            d_geo_k = anchor_cotangents(geo, att, d_geo_k, d_att_k)
-            d_verts_k, d_colors_k = vjp_planes((d_geo_k, d_att_k))
-            # The per-chunk collective: on a pod this psum (ICI) can
-            # overlap the NEXT band's cotangent pass (compute).
-            d_verts = d_verts + jax.lax.psum(d_verts_k, axis)
-            d_colors = d_colors + jax.lax.psum(d_colors_k, axis)
-        return loss, d_verts, d_colors, d_bg
-
-    fn = jax.shard_map(
-        per_device,
-        mesh=mesh,
-        in_specs=(P(axis), P(axis), P(), P()),
-        out_specs=(P(), P(), P(), P(axis)),
-        check_vma=False,
-    )
-    return fn(
+    value, (d_bg, d_verts, d_cols) = jax.value_and_grad(
+        loss, argnums=(0, 1, 2)
+    )(
         jnp.asarray(background, jnp.float32),
-        jnp.asarray(target, jnp.float32),
         jnp.asarray(vertices, jnp.float32),
         jnp.asarray(vertex_colors, jnp.float32),
     )
-
-
-# ---------------------------------------------------------------------------
-# Round 4: the production overlapped path. ``overlapped_loss_and_grads``
-# above proved the per-chunk-psum structure on the pure-JAX cotangent
-# engine with a hardcoded L2 loss; this custom_vjp wraps the PACKED fused
-# backward (the production engine) and accepts ARBITRARY upstream
-# cotangents, so it composes with any downstream loss/shading graph
-# (round-3 VERDICT task #7). ``parallel.sharding.rasterise_sharded``
-# exposes it via ``overlap_chunks=N``.
-# ---------------------------------------------------------------------------
-
-
-def _packed_caps(config: RasterConfig, num_faces: int, hp: int, wp: int):
-    """(expand, budget) exactly as ``ops.raster._forward_impl`` resolves
-    them — the backward re-derives the forward's bins (rematerialization),
-    so the caps must match bit-for-bit."""
-    tiles_y, tiles_x, strips, groups = binning.packed_grid(
-        hp, wp, config.tile_h, config.tile_w
-    )
-    nsid = tiles_y * tiles_x * strips * groups
-    expand = config.expand_cap or binning.auto_packed_expand(
-        num_faces, nsid
-    )
-    budget = config.budget or binning.auto_packed_budget(
-        num_faces, hp, wp, config.tile_h, config.tile_w, expand
-    )
-    return expand, budget
+    return value, d_verts, d_cols, d_bg
 
 
 def rasterise_overlapped(
@@ -240,17 +139,13 @@ def rasterise_overlapped(
 
     Functionally identical to ``parallel.sharding.rasterise_sharded``
     (same forward, same gradient semantics, arbitrary upstream
-    cotangents), but the backward runs the packed fused kernel as
-    ``n_chunks`` STATIC slices of its budget-chunk grid; each slice's
-    parameter gradients are psum'd immediately, so on a pod slice chunk
-    k's ICI collective can ride while slice k+1 computes. Requirements on
-    top of ``rasterise_sharded``: the packed engine must be the resolved
-    engine (it is, for production face counts), and the bins are
-    REMATERIALIZED in the backward (binning is deterministic; this trades
-    ~2.8 ms of recompute at 1024^2 for not plumbing PackedBins through
-    the custom_vjp residual boundary).
+    cotangents), but the backward runs the pixel cotangent pass as
+    ``n_chunks`` row bands of each slab (:func:`_band_face_rows`, as even
+    as the slab height allows); each band's per-face plane cotangents are
+    psum'd immediately, so band k's collective can run while band k + 1
+    computes.
     """
-    height, width, channels = background.shape
+    height, width, _ = background.shape
     n = mesh.shape[axis]
     config = (config or RasterConfig()).concrete(height // n)
     if height % (n * config.tile_h) != 0:
@@ -260,44 +155,14 @@ def rasterise_overlapped(
         )
     faces = jnp.asarray(faces, jnp.int32)
     num_faces = faces.shape[0]
-    if resolve_engine(config, num_faces) != "packed":
-        raise ValueError(
-            "rasterise_overlapped requires the packed engine (pass "
-            "engine='packed' or a production-size face count)"
-        )
     slab_h = height // n
-    hp = slab_h                      # slab_h is a tile_h multiple
-    wp = -(-width // config.tile_w) * config.tile_w
-    tile_h, tile_w = config.tile_h, config.tile_w
-    expand, budget = _packed_caps(config, num_faces, hp, wp)
-    budget_chunks = budget * binning.GROUPS // binning.PACK_CHUNK
-    n_chunks = max(1, min(n_chunks, budget_chunks))
-    bmax = -(-expand // binning.POOL_ALIGN)
-
+    n_chunks = max(1, min(n_chunks, slab_h))
+    bounds = [round(k * slab_h / n_chunks) for k in range(n_chunks + 1)]
     shift = jnp.array([0.0, 1.0, 0.0, 0.0])
 
     def _face_data(verts, cols, row0):
         fv = screen_from_clip(verts, height, width)[faces] - shift * row0
         return fv, cols[faces]
-
-    def _rebin(fv):
-        """Deterministic re-derivation of the forward's PackedBins."""
-        from dirt_tpu.ops.triangle_setup import (
-            edge_filter_cols,
-            face_bbox_cols,
-        )
-
-        fv = jax.lax.stop_gradient(fv)
-        _, _, valid = setup_planes(
-            fv, jnp.zeros((num_faces, 3, 1), jnp.float32)
-        )
-        bbox = face_bbox_cols(fv, valid, slab_h, width)
-        edges = edge_filter_cols(fv)
-        return binning.bin_faces_packed(
-            bbox, hp, wp, tile_h, tile_w, budget, expand,
-            edges=edges, pool_cap=config.pool_cap,
-            work_cap=config.work_cap,
-        )
 
     @jax.custom_vjp
     def overlapped_op(background, verts, cols):
@@ -316,55 +181,37 @@ def rasterise_overlapped(
             out_specs=(P(axis), P(axis), P(axis)),
             check_vma=False,
         )(jnp.asarray(background, jnp.float32), verts, cols)
-        return pixels, (background, verts, cols, pixels, fid, zbuf)
+        return pixels, (verts, cols, pixels, fid, zbuf)
 
     def _bwd(residuals, grad_pixels):
-        background, verts, cols, pixels, fid, zbuf = residuals
+        verts, cols, pixels, fid, zbuf = residuals
 
         def per_dev(cot, pix, fid_s, zbuf_s, verts, cols):
-            from dirt_tpu.ops.packed_bwd import (
-                packed_entry_rows,
-                pool_reduce_rows,
-                prepare_backward_packed,
-            )
-
             row0 = (jax.lax.axis_index(axis) * slab_h).astype(jnp.float32)
 
             def to_planes(verts, cols):
-                fv, fa = _face_data(verts, cols, row0)
-                geo, att, _ = setup_planes(fv, fa)
+                geo, att, _ = setup_planes(*_face_data(verts, cols, row0))
                 return geo, att
 
             (geo, att), vjp_planes = jax.vjp(to_planes, verts, cols)
-            fv, _ = _face_data(verts, cols, row0)
-            bins = _rebin(fv)
-            nbrs4 = _halo_neighbor_stacks(
-                fid_s, zbuf_s, pix, cot, axis, hp, wp
-            )
-            prep = prepare_backward_packed(
-                geo, att, fid_s, zbuf_s, pix, cot, bins, tile_h, tile_w,
-                nbrs=nbrs4,
-            )
-            bounds = [
-                round(k * budget_chunks / n_chunks)
-                for k in range(n_chunks + 1)
-            ]
-            d_verts = jnp.zeros_like(verts)
-            d_cols = jnp.zeros_like(cols)
-            for c0, c1 in zip(bounds[:-1], bounds[1:]):
-                rows_k = packed_entry_rows(prep, c0, c1)
-                face_rows_k = pool_reduce_rows(
-                    rows_k, bins.pair_rows, bins.pool_offs, num_faces,
-                    bmax, row_base=c0 * binning.PACK_CHUNK,
+            nbrs = _halo_neighbor_maps(fid_s, zbuf_s, pix, cot, axis)
+            d_geo = jnp.zeros_like(geo)
+            d_att = jnp.zeros_like(att)
+            for y0, y1 in zip(bounds[:-1], bounds[1:]):
+                rows = slice(y0, y1)
+                d_geo_k, d_att_k = _band_face_rows(
+                    geo, att, fid_s[rows], zbuf_s[rows], pix[rows],
+                    cot[rows], [tuple(m[rows] for m in n) for n in nbrs],
+                    float(y0), num_faces,
                 )
-                d_geo_k, d_att_k = assemble_face_gradients(
-                    geo, att, face_rows_k, channels
-                )
-                dv_k, dc_k = vjp_planes((d_geo_k, d_att_k))
-                # The per-chunk collective: on a pod this psum (ICI)
-                # overlaps the next slice's kernel pass.
-                d_verts = d_verts + jax.lax.psum(dv_k, axis)
-                d_cols = d_cols + jax.lax.psum(dc_k, axis)
+                # The per-band collective, over per-face plane cotangents
+                # (the same on every slab: planes are anchored, and a
+                # slab's row shift has unit Jacobian): it can overlap the
+                # next band's cotangent pass.
+                d_geo = d_geo + jax.lax.psum(d_geo_k, axis)
+                d_att = d_att + jax.lax.psum(d_att_k, axis)
+            d_geo = anchor_cotangents(geo, att, d_geo, d_att)
+            d_verts, d_cols = vjp_planes((d_geo, d_att))
             d_bg = jnp.where((fid_s >= 0)[..., None], 0.0, cot)
             return d_verts, d_cols, d_bg
 

@@ -1,7 +1,7 @@
 """Multi-chip rendering: image-tile (slab) sharding over a device mesh.
 
 The reference is single-process, single-GPU (SURVEY.md section 2.3); this
-module is the pod-scaling story the TPU build adds. Design (SURVEY.md
+module spreads one render over the cards of a host. Design (SURVEY.md
 sections 5 and 7):
 
 * The image's row axis is sharded over a mesh axis (default ``"tiles"``) —
@@ -19,7 +19,9 @@ sections 5 and 7):
   transpose (a ``psum`` over the tile axis) automatically.
 * A ``"data"`` mesh axis batches independent scenes (data parallelism).
 
-Everything composes with ``jit``: XLA lays the collectives on ICI.
+Everything composes with ``jit``: XLA hands the collectives to NCCL. The
+cards of one host reach each other all to all over NVLink, so the mesh
+shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -30,14 +32,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from dirt_tpu.ops.raster import (
-    RasterConfig,
-    _forward_impl,
-    make_scatter_fn,
-    resolve_engine,
-    use_streaming,
-)
-from dirt_tpu.ops.raster_bwd import backward_scatter_halo, neighbor_maps
+from dirt_tpu.ops.raster import RasterConfig, _forward_impl
+from dirt_tpu.ops.raster_bwd import backward_jax
 from dirt_tpu.ops.raster_fwd import BIG_Z
 from dirt_tpu.ops.triangle_setup import screen_from_clip, setup_planes
 
@@ -82,44 +78,6 @@ def _exchange_halo_rows(fid, zbuf, pixels, grad_pixels, axis: str):
     )
 
 
-def _halo_neighbor_stacks(
-    fid, zbuf, pixels, grad_pixels, axis, hp: int, wp: int
-):
-    """Boundary-pair neighbor stacks [4, hp, wp] with halo rows spliced in.
-
-    Computes :func:`dirt_tpu.ops.raster_bwd.neighbor_maps` on arrays
-    extended by one mesh-neighbor row on each side, then slices back to
-    this slab's own rows: the vertical neighbor data of the slab's first
-    and last rows comes from the adjacent devices, so every cross-slab
-    boundary pair is evaluated (exactly once) by the device owning the
-    pair's front pixel. Width is padded to the tile multiple ``wp`` with
-    excluded-pair sentinels, matching ``backward_packed``'s padding.
-    """
-    fid_e, zbuf_e, pixels_e, grad_e = _exchange_halo_rows(
-        fid, zbuf, pixels, grad_pixels, axis
-    )
-    width = fid_e.shape[1]
-    padw = ((0, 0), (0, wp - width))
-    fid_ep = jnp.pad(fid_e, padw, constant_values=-2)
-    zbuf_ep = jnp.pad(zbuf_e, padw, constant_values=BIG_Z)
-    pix_cf = jnp.pad(
-        jnp.transpose(pixels_e, (2, 0, 1)), ((0, 0),) + padw
-    )
-    grad_cf = jnp.pad(
-        jnp.transpose(grad_e, (2, 0, 1)), ((0, 0),) + padw
-    )
-    nbr = neighbor_maps(fid_ep, zbuf_ep, pix_cf, grad_cf)
-    padh = ((0, 0), (0, hp - fid.shape[0]), (0, 0))
-    nfid4 = jnp.pad(
-        jnp.stack([n[0][1:-1] for n in nbr]), padh, constant_values=-2
-    )
-    nz4 = jnp.pad(
-        jnp.stack([n[1][1:-1] for n in nbr]), padh, constant_values=BIG_Z
-    )
-    sval4 = jnp.pad(jnp.stack([n[2][1:-1] for n in nbr]), padh)
-    return nfid4, nz4, sval4
-
-
 def _make_slab_op(config: RasterConfig, axis: str, total_height: int):
     """custom_vjp slab rasterizer with halo-exchanged boundary gradients.
 
@@ -137,22 +95,14 @@ def _make_slab_op(config: RasterConfig, axis: str, total_height: int):
         return pixels, fid, zbuf
 
     def fwd(face_verts_local, face_attrs, bg_slab, row0):
-        pixels, fid, zbuf, bins = _forward_impl(
+        pixels, fid, zbuf, _ = _forward_impl(
             face_verts_local, face_attrs, bg_slab, config
         )
-        engine = resolve_engine(config, face_verts_local.shape[0])
-        if engine == "packed":
-            bin_res = bins                 # PackedBins, reused by backward
-        elif use_streaming(config, face_verts_local.shape[0]):
-            bin_res = (bins.entry_face, bins.start_block, bins.counts)
-        else:
-            bin_res = (bins.bins, bins.counts)
         out = (pixels, fid, zbuf)
-        return out, (face_verts_local, face_attrs, *out, bin_res, row0)
+        return out, (face_verts_local, face_attrs, *out, row0)
 
     def bwd(residuals, cotangents):
-        (face_verts_local, face_attrs, pixels, fid, zbuf, bin_res,
-         row0) = residuals
+        face_verts_local, face_attrs, pixels, fid, zbuf, row0 = residuals
         grad_pixels = cotangents[0]
         slab_h = fid.shape[0]
 
@@ -162,47 +112,6 @@ def _make_slab_op(config: RasterConfig, axis: str, total_height: int):
         row_in_image = (row0 + rows) < total_height
         fid = jnp.where(row_in_image[:, None], fid, -2)
         zbuf = jnp.where(row_in_image[:, None], zbuf, BIG_Z)
-
-        if resolve_engine(config, face_verts_local.shape[0]) == "packed":
-            # Packed engine: the fused backward consumes the forward's
-            # PackedBins directly; only the boundary-pair neighbor maps
-            # need the halo splice, and the geometry stays slab-local
-            # (no shifted re-setup).
-            from dirt_tpu.ops.packed_bwd import backward_packed
-
-            hp = -(-slab_h // config.tile_h) * config.tile_h
-            wp = -(-fid.shape[1] // config.tile_w) * config.tile_w
-            nbrs4 = _halo_neighbor_stacks(
-                fid, zbuf, pixels, grad_pixels, axis, hp, wp
-            )
-
-            def planes(fv, fa):
-                geo2, att2, _ = setup_planes(fv, fa)
-                return geo2, att2
-
-            (geo, att), vjp_fn = jax.vjp(
-                planes, face_verts_local, face_attrs
-            )
-            from dirt_tpu.ops import binning as _binning
-
-            _, _, strips_p, groups_p = _binning.packed_grid(
-                hp, wp, config.tile_h, config.tile_w
-            )
-            nsid_p = (hp // config.tile_h) * (wp // config.tile_w) \
-                * strips_p * groups_p
-            expand_p = config.expand_cap or _binning.auto_packed_expand(
-                face_verts_local.shape[0], nsid_p
-            )
-            d_geo, d_att, d_bg = backward_packed(
-                geo, att, fid, zbuf, pixels, grad_pixels, bin_res,
-                face_verts_local.shape[0], config.tile_h, config.tile_w,
-                nbrs=nbrs4, bmax=-(-expand_p // _binning.POOL_ALIGN),
-            )
-            d_fv, d_fa = vjp_fn((d_geo, d_att))
-            return (
-                d_fv, d_fa, d_bg,
-                jnp.zeros_like(row0, dtype=jnp.float32),
-            )
 
         fid_e, zbuf_e, pixels_e, grad_e = _exchange_halo_rows(
             fid, zbuf, pixels, grad_pixels, axis
@@ -223,13 +132,11 @@ def _make_slab_op(config: RasterConfig, axis: str, total_height: int):
         (geo_shift, att_shift), vjp_shift = jax.vjp(
             planes_shifted, face_verts_local, face_attrs
         )
-        scatter_fn = make_scatter_fn(
-            config, bin_res, face_verts_local.shape[0],
-            slab_h, fid.shape[1],
-        )
-        d_geo, d_att, d_bg_e = backward_scatter_halo(
+        # Halo rows are not owned: they supply the neighbor side of
+        # cross-slab pairs and contribute nothing themselves.
+        d_geo, d_att, d_bg_e = backward_jax(
             geo_shift, att_shift, fid_e, zbuf_e, pixels_e, grad_e,
-            own_mask, scatter_fn, config.tile_h, config.tile_w,
+            own_mask=own_mask,
         )
         d_fv, d_fa = vjp_shift((d_geo, d_att))
         d_bg = d_bg_e[1:-1]
@@ -283,16 +190,13 @@ def rasterise_sharded(
         vertex_colors: [V, C] (replicated).
         faces: [F, 3] int32 (replicated, static).
         mesh: jax.sharding.Mesh containing ``axis``.
-        axis: mesh axis name for the image rows — or a TUPLE of names
-            for two-level meshes (e.g. ``("dcn", "tiles")`` from
-            ``parallel.multihost.make_render_mesh``: rows shard
-            dcn-major so each host owns a contiguous band and halo
-            ppermutes cross DCN only at band boundaries).
-        overlap_chunks: if set (and ``axis`` is a single name, packed
-            engine), the backward runs as that many budget-chunk slices
-            with a parameter-grad ``psum`` per slice, so collectives
-            overlap compute on a pod (``parallel.overlap``). Gradients
-            are unchanged up to f32 reassociation.
+        axis: mesh axis name for the image rows, or a tuple of names
+            (rows shard over their product, first name major).
+        overlap_chunks: if set (and ``axis`` is a single name), the
+            backward runs as that many row bands with a parameter-grad
+            ``psum`` per band, so a band's collective can overlap the
+            next band's compute (``parallel.overlap``). Gradients are
+            unchanged up to f32 reassociation.
     Returns:
         [H, W, C] rendered image, sharded along rows; differentiable w.r.t.
         background, vertices, vertex_colors (parameter grads all-reduced).

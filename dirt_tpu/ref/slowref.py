@@ -266,19 +266,23 @@ def fixed_coverage_render(face_verts_screen, face_attrs, background, fid):
             b[..., 1] - a[..., 1]
         ) * (q[..., 0] - a[..., 0])
 
+    covered = (fid >= 0)[..., None]
     v0, v1, v2 = v[..., 0, :2], v[..., 1, :2], v[..., 2, :2]
     e0 = edge(v1, v2, p)
     e1 = edge(v2, v0, p)
     e2 = edge(v0, v1, p)
-    area2 = edge(v0, v1, v2)
+    # Uncovered pixels evaluate face 0 far from its triangle, where the
+    # denominators may vanish; divide by 1 there so the discarded branch
+    # stays finite and its zero cotangent cannot turn into 0 * inf = NaN.
+    area2 = jnp.where(covered[..., 0], edge(v0, v1, v2), 1.0)
     bary = jnp.stack([e0, e1, e2], axis=-1) / area2[..., None]  # [H, W, 3]
 
     invw = v[..., 3]  # [H, W, 3]
     weights = bary * invw
-    den = jnp.sum(weights, axis=-1, keepdims=True)
-    color = jnp.einsum("hwk,hwkc->hwc", weights, attrs) / den
-
-    covered = (fid >= 0)[..., None]
+    den = jnp.where(covered, jnp.sum(weights, axis=-1, keepdims=True), 1.0)
+    color = jnp.einsum(
+        "hwk,hwkc->hwc", weights, attrs, precision=jax.lax.Precision.HIGHEST
+    ) / den
     return jnp.where(covered, color, bg)
 
 

@@ -7,9 +7,9 @@ UVs, Lambertian + Phong terms, all masked by coverage. Being plain JAX, it
 is differentiable w.r.t. every input (G-buffer, texture, lights, camera),
 so gradients flow back through the rasterizer to geometry and pose.
 
-TPU note: all per-pixel vector math runs channels-FIRST internally
-([3, H, W]); channel-axis reductions on [H, W, 3] arrays are ~6x slower on
-v5e because a 3-wide minor dimension wastes the 128-lane layout.
+Layout note: all per-pixel vector math runs channels-FIRST internally
+([3, H, W]), so channel reductions combine whole image planes instead of
+reducing over a 3-wide minor dimension.
 """
 
 from __future__ import annotations

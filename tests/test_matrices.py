@@ -1,4 +1,6 @@
+import jax
 import jax.numpy as jnp
+import pytest
 import numpy as np
 
 from dirt_tpu.core import matrices
@@ -95,3 +97,34 @@ def test_transform_homogeneous():
     out = matrices.transform_homogeneous(v, m)
     assert out.shape == (2, 4)
     np.testing.assert_allclose(out[:, 2], [-5.0, -5.0])
+
+
+def _random_transform(seed):
+    rng = np.random.RandomState(seed)
+    m = matrices.compose(
+        matrices.rodrigues(jnp.asarray(rng.uniform(-2, 2, 3), jnp.float32)),
+        matrices.translation(
+            jnp.asarray(rng.uniform(-5, 5, 3), jnp.float32)),
+        matrices.perspective_projection(0.1, 20.0, 0.045, 1.0),
+    )
+    verts = rng.uniform(-1, 1, (257, 3)).astype(np.float32)
+    return np.asarray(m), verts
+
+
+@pytest.mark.parametrize("fn", ["compose", "transform_homogeneous"])
+def test_products_are_pinned_to_full_f32(fn):
+    """Both products ask for HIGHEST precision (never TF32 on a GPU) and
+    match float64 NumPy to f32 rounding."""
+    m, verts = _random_transform(3)
+    if fn == "compose":
+        args = (jnp.asarray(m), jnp.asarray(m.T))
+        want = m.astype(np.float64) @ m.T.astype(np.float64)
+    else:
+        args = (jnp.asarray(verts), jnp.asarray(m))
+        homog = np.concatenate([verts, np.ones((257, 1), np.float32)], 1)
+        want = homog.astype(np.float64) @ m.astype(np.float64)
+    f = getattr(matrices, fn)
+    assert "HIGHEST" in str(jax.make_jaxpr(f)(*args))
+    got = np.asarray(jax.jit(f)(*args), np.float64)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=1e-6 * scale, rtol=0)

@@ -2,8 +2,8 @@
 
 SURVEY.md section 5 / ROADMAP r2 #7: the overlap STRUCTURE (backward
 split into row bands, each emitting its own parameter-grad psum) is
-correctness-proven on the virtual 8-device mesh; the ICI overlap win
-itself needs real multi-chip hardware.
+correctness-proven on the virtual 8-device mesh; whether the overlap pays
+over NVLink needs several cards.
 """
 
 import jax
@@ -129,15 +129,64 @@ def test_production_overlapped_arbitrary_cotangents():
     assert np.abs(np.asarray(g_ref[0])).max() > 0
 
 
+def _summation_scale(verts, colors, faces, bg, target, config):
+    """Per-entry sum of |terms| of the (verts, colors) gradients of
+    ``sum((rasterise(...) - target)**2)``, single device, clip off.
+
+    Each face's plane cotangents are sums of per-pixel terms; the vertex and
+    colour gradients are a fixed linear map of those sums. Summing the
+    terms in another order (other row bands, other slabs) moves an entry by
+    a few f32 eps times the sum of |terms| pushed through |map|; one pair
+    counted twice or missed moves it by a whole term.
+    """
+    from dirt_tpu.ops.raster import _forward_impl
+    from dirt_tpu.ops.raster_bwd import (
+        assemble_face_gradients, face_cotangent_columns, face_rows,
+    )
+    from dirt_tpu.ops.triangle_setup import screen_from_clip, setup_planes
+
+    height, width, _ = bg.shape
+
+    def planes(v, c):
+        return setup_planes(screen_from_clip(v, height, width)[faces],
+                            c[faces])[:2]
+
+    (geo, att), vjp_planes = jax.vjp(planes, verts, colors)
+    pix, fid, zbuf, _ = _forward_impl(
+        screen_from_clip(verts, height, width)[faces], colors[faces], bg,
+        config.concrete(height),
+    )
+    cot, covered = face_cotangent_columns(
+        geo, fid, zbuf, pix, 2.0 * (pix - target)
+    )
+    abs_rows = face_rows(jnp.abs(cot), fid, covered, faces.shape[0])
+    jac = jax.jacobian(
+        lambda rows: vjp_planes(assemble_face_gradients(geo, att, rows))
+    )(abs_rows)
+    return [np.asarray(jnp.einsum("ij...,...->ij", jnp.abs(m), abs_rows))
+            for m in jac]
+
+
 @pytest.mark.slow
 def test_production_overlapped_chunk_invariance():
-    """overlap_chunks=1 == overlap_chunks=4 on the packed path."""
+    """overlap_chunks=1 == overlap_chunks=4 == one device, packed engine.
+
+    Bands and slabs only re-order each face's f32 sums, so every vertex and
+    colour entry agrees within 4 eps x its sum of |terms|
+    (:func:`_summation_scale`; about 1.2 eps is reached), and the
+    background gradient, which sums nothing, agrees exactly."""
     from dirt_tpu.parallel.overlap import rasterise_overlapped
 
     verts, colors, faces, bg, target = _scene(seed=11, size=64)
 
+    def loss_single(v, c, b):
+        img = dirt_tpu.rasterise(b, v, c, faces, config=PACKED_CFG,
+                                 clip=False)
+        return jnp.sum((img - target) ** 2)
+
+    outs = [jax.jit(jax.grad(loss_single, argnums=(0, 1, 2)))(
+        verts, colors, bg)]
     with Mesh(np.array(jax.devices()[:2]), ("tiles",)) as mesh:
-        outs = []
         for k in (1, 4):
             def loss(v, c, b, k=k):
                 img = rasterise_overlapped(
@@ -148,7 +197,14 @@ def test_production_overlapped_chunk_invariance():
             outs.append(
                 jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(verts, colors, bg)
             )
-    for a, b in zip(outs[0], outs[1]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6
-        )
+    scale = _summation_scale(verts, colors, faces, bg, target, PACKED_CFG)
+    eps = np.finfo(np.float32).eps
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        for a, b, s, name in zip(outs[i][:2], outs[j][:2], scale,
+                                 ("verts", "colors")):
+            err = np.abs(np.asarray(a) - np.asarray(b))
+            assert np.all(err <= 4 * eps * s), (
+                f"{name} ({i} vs {j}): max |diff| {float(err.max())}"
+            )
+        np.testing.assert_array_equal(np.asarray(outs[i][2]),
+                                      np.asarray(outs[j][2]))

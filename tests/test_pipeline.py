@@ -82,8 +82,7 @@ def test_config4_lit_gradients_to_light_and_pose():
         shaded = lighting.diffuse_directional(
             normals, jnp.ones((8, 3)) * 0.8, light_dir, jnp.ones(3)
         )
-        ones = jnp.ones((8, 1))
-        clip = jnp.concatenate([world, ones], -1) @ proj
+        clip = matrices.transform_homogeneous(world, proj)
         return dirt_tpu.rasterise(jnp.zeros((96, 96, 3)), clip, shaded, faces)
 
     light = jnp.array([0.3, 0.8, 0.52])
@@ -115,8 +114,7 @@ def test_config5_deferred_full_graph():
         )
         world = matrices.transform_homogeneous(verts, model)[..., :3]
         normals = lighting.vertex_normals(world, faces)
-        ones = jnp.ones((verts.shape[0], 1))
-        clip = jnp.concatenate([world, ones], -1) @ proj
+        clip = matrices.transform_homogeneous(world, proj)
         gb = render_gbuffer(
             clip, faces,
             {"position": world, "normal": normals, "uv": uvs}, 96, 96,

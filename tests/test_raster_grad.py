@@ -212,51 +212,8 @@ def test_gradient_descent_converges_on_translation():
     assert float(jnp.abs(offset).max()) < 2.0, offset
 
 
-@pytest.mark.slow
-def test_scatter_engine_matches_jax_engine():
-    """The Pallas MXU scatter backward must equal the pure-JAX engine."""
-    import jax
-    from dirt_tpu.ops import binning
-    from dirt_tpu.ops.raster import RasterConfig, _forward_impl
-    from dirt_tpu.ops.raster_bwd import backward_jax, backward_scatter
-    from dirt_tpu.ops.scatter import scatter_to_faces
-    from dirt_tpu.ops.triangle_setup import setup_planes, screen_from_clip
-
-    rng = np.random.RandomState(7)
-    nf, size = 60, 96
-    verts = rng.uniform(-1.1, 1.1, (3 * nf, 4)).astype(np.float32)
-    verts[:, 2] = rng.uniform(-0.8, 0.8, 3 * nf)
-    verts[:, 3] = 1.0
-    faces = np.arange(3 * nf, dtype=np.int32).reshape(nf, 3)
-    colors = rng.rand(3 * nf, 3).astype(np.float32)
-    bg = jnp.zeros((size, size, 3), jnp.float32)
-    config = RasterConfig(tile_h=16, tile_w=128, bin_cap=128)
-
-    vs = screen_from_clip(jnp.asarray(verts), size, size)
-    fv = vs[jnp.asarray(faces)]
-    fa = jnp.asarray(colors)[jnp.asarray(faces)]
-    geo, att, _ = setup_planes(fv, fa)
-    pixels, fid, zbuf, bins = _forward_impl(fv, fa, bg, config)
-    gp = jnp.asarray(rng.rand(size, size, 3), jnp.float32)
-
-    ref = backward_jax(geo, att, fid, zbuf, pixels, gp)
-
-    def scatter_fn(cot_p, fid_p):
-        return scatter_to_faces(
-            cot_p, fid_p, bins.bins, bins.counts, nf + 1,
-            tile_h=16, tile_w=128,
-        )[:nf]
-
-    got = backward_scatter(
-        geo, att, fid, zbuf, pixels, gp, scatter_fn, 16, 128
-    )
-    for r, g in zip(ref, got):
-        np.testing.assert_allclose(
-            np.asarray(r), np.asarray(g), rtol=2e-4, atol=2e-4)
-
-
 # ---------------------------------------------------------------------------
-# v2 packed engine backward: same gradient semantics as the dense engine.
+# Packed engine: same gradient semantics as the dense engine.
 # ---------------------------------------------------------------------------
 
 
@@ -303,47 +260,3 @@ def test_packed_backward_matches_oracle():
     np.testing.assert_allclose(d_bg, ref_d_bg, atol=1e-5)
     np.testing.assert_allclose(d_fa, ref_d_fa, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(d_fv, ref_d_fv, rtol=5e-3, atol=5e-3)
-
-
-def test_fused_prologue_matches_reference_construction():
-    """fused_neighbor_prologue (strip-halo Pallas pass) == the XLA
-    shifts + bit combine + flat_subtile_swap reference, bitwise for the
-    integer planes."""
-    from dirt_tpu.ops.packed_bwd import fused_neighbor_prologue
-    from dirt_tpu.ops.raster_bwd import boundary_cases, neighbor_maps
-    from dirt_tpu.ops.raster_fwd import BIG_Z, flat_subtile_swap
-
-    rng = np.random.RandomState(17)
-    hp, wp, c = 32, 256, 3
-    fid_p = jnp.asarray(rng.randint(-2, 9, (hp, wp)), jnp.int32)
-    zbuf_p = jnp.asarray(
-        np.where(rng.rand(hp, wp) < 0.2, BIG_Z,
-                 rng.randn(hp, wp)).astype(np.float32))
-    pix_cf = jnp.asarray(rng.rand(c, hp, wp).astype(np.float32))
-    grad_cf = jnp.asarray(rng.randn(c, hp, wp).astype(np.float32))
-
-    nbr = neighbor_maps(fid_p, zbuf_p, pix_cf, grad_cf)
-    bits_ref = jnp.zeros((hp, wp), jnp.int32)
-    for n, (_, _, _, strict) in enumerate(boundary_cases()):
-        nfid, nz, _ = nbr[n]
-        pair = (fid_p != nfid) & (nfid != -2)
-        front = (zbuf_p < nz) if strict else (zbuf_p <= nz)
-        bits_ref = bits_ref | ((pair & front).astype(jnp.int32) << n)
-    sval_ref = jnp.stack([nbr[n][2] for n in range(4)])
-
-    fid_f, bits_f, pix_f, grad_f, sval_f = fused_neighbor_prologue(
-        fid_p, zbuf_p, pix_cf, grad_cf)
-
-    np.testing.assert_array_equal(
-        np.asarray(fid_f), np.asarray(flat_subtile_swap(fid_p)))
-    np.testing.assert_array_equal(
-        np.asarray(bits_f), np.asarray(flat_subtile_swap(bits_ref)))
-    np.testing.assert_allclose(
-        np.asarray(pix_f), np.asarray(flat_subtile_swap(pix_cf)),
-        atol=0.0)
-    np.testing.assert_allclose(
-        np.asarray(grad_f), np.asarray(flat_subtile_swap(grad_cf)),
-        atol=0.0)
-    np.testing.assert_allclose(
-        np.asarray(sval_f), np.asarray(flat_subtile_swap(sval_ref)),
-        rtol=1e-6, atol=1e-6)

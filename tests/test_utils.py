@@ -69,3 +69,28 @@ def test_checkpoint_none_leaves(tmp_path):
     np.testing.assert_array_equal(restored["b"], np.arange(4.0))
     assert restored["c"][0] is None
     np.testing.assert_array_equal(restored["c"][1], np.ones(2))
+
+
+def test_compile_cache_yields_to_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, that is the cache, and this
+    module sets no other directory in JAX's config."""
+    import jax
+
+    from dirt_tpu.utils import compilecache
+
+    before = jax.config.jax_compilation_cache_dir
+    where = str(tmp_path / "cache")
+    monkeypatch.setenv(compilecache.ENV_VAR, where)
+    assert compilecache.enable_compile_cache() == where
+    assert os.path.isdir(where)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_ignored_dir_in_checkout(monkeypatch):
+    from dirt_tpu.utils import compilecache
+
+    monkeypatch.delenv(compilecache.ENV_VAR, raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compilecache.cache_dir() == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -1,10 +1,7 @@
-"""Large-mesh benchmark: 100k / 1M triangles at honest caps (VERDICT r4 #5).
+"""Large-mesh benchmark: 100k / 1M triangles at honest caps.
 
-The 1M-triangle claim rested on a round-1 fwd-only CSR smoke (721 ms);
-this measures CURRENT numbers on the auto-resolved engine with
-count-then-allocate caps: fwd AND fwd+bwd, overflow-asserted complete
-renders. Results go to BASELINE.md (the driver's bench.py keeps only the
-100k fwd line inside its budget).
+Measures the auto-resolved engine with count-then-allocate caps: fwd AND
+fwd+bwd, overflow-asserted complete renders, on the GPU.
 
 Run: python tools/bench_large.py [n_lat ...]   (default 224 708)
 """
@@ -41,9 +38,7 @@ def run(n_lat, size=1024):
         np.random.RandomState(1).rand(size, size, 3), jnp.float32
     )
     nf = faces.shape[0]
-    config = honest_config(
-        clip, colors, faces, size, key=f"sphere{n_lat}_{size}_auto"
-    )
+    config = honest_config(clip, colors, faces, size)
     print(f"# {nf} faces: {config}", file=sys.stderr)
 
     def fwd(c, co, b, w):

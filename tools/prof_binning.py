@@ -1,10 +1,10 @@
-"""Micro-profile of bin_faces_packed's primitive costs (round-4 perf work).
+"""Micro-profile of bin_faces_packed's primitive costs.
 
 Times each primitive of the packed binning pipeline at the flagship
 1024^2 / 10k-tri honest-caps sizes (pool ~99k slots, merged sort ~108k
-elements, budget ~151k rows), so the binning attack (~2.8 ms of the
-8.4 ms step) is aimed at measured costs. Also A/Bs candidate layouts
-(multi-array lexicographic sort vs a single packed key).
+elements, budget ~151k rows), so work on the binning is aimed at measured
+costs. Also A/Bs candidate layouts (multi-array lexicographic sort vs a
+single packed key).
 
 Run: python tools/prof_binning.py [size]
 """
@@ -37,7 +37,7 @@ def main():
     size = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     from bench import build
 
-    clip, colors, faces, bg, weights, _ = build(size)
+    clip, colors, faces, bg, weights = build(size)
     fv, fa = jax.jit(
         lambda cv, co, f: (screen_from_clip(cv, size, size)[f], co[f])
     )(clip, colors, faces)
@@ -73,7 +73,7 @@ def main():
         (2, "2 merged sort + rank"), (3, "3 subtile counts"),
         (4, "4 grid prefix math"), (5, "5 pair placement"),
         (6, "6 entries scatter"),
-        (7, "7 pair_rows (bwd inverse)"),
+        (7, "7 entries scatter"),
     ]
     prev = 0.0
     for stage, name in names:

@@ -1,11 +1,10 @@
-"""Single-chip overhead of the parallel paths (VERDICT r4 #6).
+"""One-card overhead of the parallel paths.
 
 The sharded/overlapped/face-sharded renderers are exactness-proven on the
 virtual 8-device mesh (tests/test_sharding.py, test_overlap.py,
-test_face_sharding.py); their ICI win needs a pod, but their single-chip
-TAX vs the plain path is measurable on one chip: a 1-device mesh runs the
-full code path (shard_map, trivial ppermutes/psums, rematerialized bins,
-band backward) minus actual communication.
+test_face_sharding.py); their one-card TAX vs the plain path is measurable
+on one card: a 1-device mesh runs the full code path (shard_map, trivial
+ppermutes/psums, band backward) minus actual communication.
 
 Measures, on the flagship 1024^2 / 10k-tri honest-caps scene:
   plain          jax.grad over dirt_tpu.rasterise (the bench step)
@@ -40,10 +39,8 @@ def main():
     size = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     from bench import build, honest_config
 
-    clip, colors, faces, bg, weights, _ = build(size)
-    config = honest_config(
-        clip, colors, faces, size, key=f"sphere72_{size}_auto"
-    )
+    clip, colors, faces, bg, weights = build(size)
+    config = honest_config(clip, colors, faces, size)
     print(f"# config: {config}", file=sys.stderr)
     mesh_t = Mesh(np.array(jax.devices()[:1]), ("tiles",))
     mesh_f = Mesh(np.array(jax.devices()[:1]), ("faces",))
